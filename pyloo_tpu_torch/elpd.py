@@ -1,0 +1,190 @@
+"""ELPD result container with the ``loo`` report format.
+
+Counterpart of ``pyloo_tpu/elpd.py`` without pandas: :class:`ELPDData` is a
+small ordered container of named rows in place of a ``pandas.Series``.  It
+keeps the behaviour ``loo()`` results are used with (indexing by name,
+attribute access to rows, ``in``, ``get``) and renders the same report
+strings byte for byte (reference ``pyloo/elpd.py:10-97`` templates).  Only
+the ``loo`` kinds are rendered here (standard and mixture); the other result
+kinds come with their estimators.
+"""
+
+from __future__ import annotations
+
+from copy import copy as _copy
+from copy import deepcopy as _deepcopy
+
+import numpy as np
+
+__all__ = ["ELPDData"]
+
+STD_BASE_FMT = """
+Computed from {n_samples} posterior samples and {n_points} observations log-likelihood matrix.
+
+         Estimate       SE
+elpd_loo   {elpd:<8.2f}    {se:<.2f}
+p_loo       {p_loo:<8.2f}    {p_loo_se:<.2f}
+looic      {looic:<8.2f}    {looic_se:<.2f}"""
+
+MIXTURE_BASE_FMT = """
+Computed from {n_samples} posterior samples and {n_points} observations log-likelihood matrix with
+mixture posterior.
+
+         Estimate       SE
+elpd_loo   {elpd:<8.2f}    -"""
+
+POINTWISE_LOO_FMT = """
+------
+
+Pareto k diagnostic values:
+                         Count   Pct.
+(-Inf, {2:.2f}]   (good)      {3:d}   {6:.1f}%
+   ({2:.2f}, 1]   (bad)         {4:d}    {7:.1f}%
+   (1, Inf)   (very bad)    {5:d}    {8:.1f}%"""
+
+_WARNING_NOTE = (
+    "\n\nThere has been a warning during the calculation. Please check the"
+    " results."
+)
+
+
+def _khat_counts(pareto_k, good_k):
+    """Histogram k values into (good, bad, very bad] bins."""
+    values = np.asarray(
+        pareto_k.values if hasattr(pareto_k, "values") else pareto_k
+    ).ravel()
+    edges = np.array([-np.inf, good_k, 1.0, np.inf])
+    counts, _ = np.histogram(values, bins=edges)
+    return counts
+
+
+def _khat_table(pareto_k, good_k):
+    counts = _khat_counts(pareto_k, good_k)
+    pct = counts / counts.sum() * 100
+    return POINTWISE_LOO_FMT.format(
+        "Count", "Pct.", good_k, counts[0], counts[1], counts[2],
+        pct[0], pct[1], pct[2],
+    )
+
+
+def _all_good_msg(good_k):
+    return (
+        f"\n\nAll Pareto k estimates are good (k < {good_k:.1f})."
+        "\nSee help('pareto-k-diagnostic') for details."
+    )
+
+
+def _pareto_section(data):
+    """Common k-diagnostic tail: histogram table, or the all-good message."""
+    good_k = data.get("good_k")
+    if "pareto_k" in data and good_k is not None:
+        counts = _khat_counts(data.pareto_k, good_k)
+        if counts[1] == 0 and counts[2] == 0:
+            return _all_good_msg(good_k), True
+        return _khat_table(data.pareto_k, good_k), False
+    return "", None
+
+
+class ELPDData:
+    """Expected log pointwise predictive density results.
+
+    Ordered rows (``elpd_loo``, ``se``, ``p_loo``, ..., and pointwise
+    ``loo_i`` / ``pareto_k`` when requested), reachable as ``res["name"]``
+    and ``res.name``.  Setting an attribute that is not a row stores plain
+    metadata (``fast_path_degenerate``), as on a ``pandas.Series``.
+    """
+
+    def __init__(self, data, index):
+        object.__setattr__(self, "_rows", dict(zip(index, data)))
+
+    # -- container behaviour ------------------------------------------------
+    def __getitem__(self, key):
+        return self._rows[key]
+
+    def __setitem__(self, key, value):
+        self._rows[key] = value
+
+    def __contains__(self, key):
+        return key in self._rows
+
+    def __len__(self):
+        return len(self._rows)
+
+    def __iter__(self):
+        return iter(self._rows.values())  # a Series iterates over its values
+
+    def __getattr__(self, name):
+        rows = self.__dict__.get("_rows", {})
+        if name in rows:
+            return rows[name]
+        raise AttributeError(name)
+
+    def __setattr__(self, name, value):
+        if name in self._rows:
+            self._rows[name] = value
+        else:
+            object.__setattr__(self, name, value)
+
+    @property
+    def index(self):
+        return list(self._rows)
+
+    def get(self, key, default=None):
+        return self._rows.get(key, default)
+
+    def copy(self, deep=True):
+        dup = _deepcopy if deep else _copy
+        out = ELPDData([dup(v) for v in self._rows.values()], list(self._rows))
+        for name, value in self.__dict__.items():
+            if name != "_rows":
+                object.__setattr__(out, name, dup(value))
+        return out
+
+    # -- report -------------------------------------------------------------
+    def __str__(self):
+        if self.index[0] != "elpd_loo":
+            raise NotImplementedError(
+                "pyloo_tpu_torch renders loo results only; the other result"
+                " kinds come with their estimators"
+            )
+        pareto_msg, all_good = _pareto_section(self)
+        # pyloo_tpu's loo() never sets a method, so its report takes the
+        # psis branch here for sis and tis results too
+        if all_good is None:
+            if self.warning:
+                pareto_msg = (
+                    "\n\nSome Pareto k diagnostic values are high (k > 0.70),"
+                    " indicating that the importance sampling approximation is"
+                    " unreliable. Consider using moment matching or exact LOO"
+                    " for more accurate estimates. Use pointwise=True to see"
+                    " detailed diagnostics."
+                )
+            else:
+                pareto_msg = (
+                    "\n\nAll Pareto k estimates are good (k <"
+                    " 0.7).\nSee help('pareto-k-diagnostic') for details."
+                )
+
+        if "p_loo" not in self:
+            base = MIXTURE_BASE_FMT.format(
+                n_samples=self.n_samples,
+                n_points=self.n_data_points,
+                elpd=self["elpd_loo"],
+            )
+        else:
+            base = STD_BASE_FMT.format(
+                n_samples=self.n_samples,
+                n_points=self.n_data_points,
+                elpd=self["elpd_loo"],
+                se=self["se"],
+                p_loo=self["p_loo"],
+                p_loo_se=self["p_loo_se"],
+                looic=self["looic"],
+                looic_se=self["looic_se"],
+            )
+        if self.warning:
+            base += _WARNING_NOTE
+        return base + pareto_msg
+
+    def __repr__(self):
+        return self.__str__()

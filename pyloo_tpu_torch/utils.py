@@ -1,0 +1,215 @@
+"""Host-side substrate: ingestion, log-likelihood extraction, logsumexp.
+
+Counterpart of ``pyloo_tpu/utils.py`` (numpy only): ``from_dict``,
+``to_inference_data``, ``get_log_likelihood`` and the stable host
+``_logsumexp``.  The netCDF, CmdStan CSV and foreign-``InferenceData``
+ingestion of ``pyloo_tpu`` is not ported yet.
+"""
+
+from __future__ import annotations
+
+import os
+import warnings
+from collections.abc import Sequence
+from typing import Any
+
+import numpy as np
+
+from .containers import _KNOWN_GROUPS, DataArray, Dataset, InferenceData
+
+__all__ = ["to_inference_data", "get_log_likelihood", "from_dict", "_logsumexp"]
+
+_INGEST_LATER = (
+    "is not supported by pyloo_tpu_torch yet: netCDF, CmdStan CSV and"
+    " foreign-InferenceData ingestion come with a later slice of the port"
+    " (ingest). Load the data with pyloo_tpu and pass the arrays through"
+    " pyloo_tpu_torch.convert.inference_data_from_numpy."
+)
+
+
+def from_dict(
+    posterior=None,
+    log_likelihood=None,
+    sample_stats=None,
+    posterior_predictive=None,
+    observed_data=None,
+    constant_data=None,
+    coords=None,
+    dims=None,
+) -> InferenceData:
+    """Build an :class:`InferenceData` from dicts of (chain, draw, ...) arrays.
+
+    ``dims`` maps a variable name to the names of its trailing (non chain/draw)
+    dimensions; ``coords`` maps a dimension name to its labels.
+    """
+    coords = coords or {}
+    dims = dims or {}
+
+    def build(group, sample_dims=True):
+        if group is None:
+            return None
+        out = {}
+        for name, values in group.items():
+            if isinstance(values, DataArray):
+                out[name] = values
+                continue
+            values = np.asarray(values)
+            extra = dims.get(name)
+            if sample_dims:
+                n_extra = values.ndim - 2
+                if extra is None:
+                    extra = [f"{name}_dim_{i}" for i in range(n_extra)]
+                var_dims = ("chain", "draw", *extra)
+            else:
+                if extra is None:
+                    extra = [f"{name}_dim_{i}" for i in range(values.ndim)]
+                var_dims = tuple(extra)
+            var_coords = {d: coords[d] for d in var_dims if d in coords}
+            out[name] = DataArray(values, var_dims, var_coords, name)
+        return Dataset(out)
+
+    return InferenceData(
+        posterior=build(posterior),
+        log_likelihood=build(log_likelihood),
+        sample_stats=build(sample_stats),
+        posterior_predictive=build(posterior_predictive),
+        observed_data=build(observed_data, sample_dims=False),
+        constant_data=build(constant_data, sample_dims=False),
+    )
+
+
+def to_inference_data(obj: Any) -> InferenceData:
+    """Convert supported objects to :class:`InferenceData`.
+
+    Supported: :class:`InferenceData` (returned as-is), anything exposing a
+    ``to_inference_data()`` method that returns one, :class:`Dataset`,
+    ``dict`` of array-likes (treated as the posterior group), and bare
+    arrays of shape ``(chain, draw, ...)``.  File paths and foreign
+    ``InferenceData`` objects raise :class:`NotImplementedError`.
+    """
+    if isinstance(obj, InferenceData):
+        return obj
+
+    if hasattr(obj, "to_inference_data"):
+        converted = obj.to_inference_data()
+        if isinstance(converted, InferenceData):
+            return converted
+
+    if isinstance(obj, (str, os.PathLike)):
+        raise NotImplementedError(f"Reading {os.fspath(obj)!r} {_INGEST_LATER}")
+
+    if isinstance(obj, (list, tuple)):
+        raise ValueError(
+            "Lists and tuples cannot be converted to InferenceData directly"
+        )
+
+    if isinstance(obj, Dataset):
+        return InferenceData(posterior=obj)
+
+    if any(hasattr(getattr(obj, g, None), "data_vars") for g in _KNOWN_GROUPS):
+        raise NotImplementedError(f"Converting a {type(obj).__name__} {_INGEST_LATER}")
+
+    if isinstance(obj, dict):
+        if not all(
+            isinstance(v, (np.ndarray, list, DataArray)) or hasattr(v, "__array__")
+            for v in obj.values()
+        ):
+            raise ValueError("Dictionary values must be array-like")
+        return from_dict(posterior=obj)
+
+    if hasattr(obj, "__array__"):
+        arr = np.asarray(obj)
+        if arr.ndim < 2:
+            arr = arr.reshape((1,) * (2 - arr.ndim) + arr.shape)
+        return from_dict(posterior={"x": arr})
+
+    raise ValueError(
+        "Can only convert InferenceData, Dataset, dict with array-like values, "
+        f"or numpy array to InferenceData, not {type(obj).__name__}"
+    )
+
+
+def get_log_likelihood(idata: InferenceData, var_name=None, single_var=True):
+    """Retrieve the pointwise log-likelihood DataArray from an InferenceData.
+
+    Matches the reference semantics (``pyloo/utils.py:257-302``), including the
+    deprecated ``sample_stats.log_likelihood`` fallback.
+    """
+    if (
+        not hasattr(idata, "log_likelihood")
+        and hasattr(idata, "sample_stats")
+        and hasattr(idata.sample_stats, "log_likelihood")
+    ):
+        warnings.warn(
+            "Storing the log_likelihood in sample_stats groups has been deprecated",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+        return idata.sample_stats.log_likelihood
+    if not hasattr(idata, "log_likelihood"):
+        raise TypeError("log likelihood not found in inference data object")
+    if var_name is None:
+        var_names = list(idata.log_likelihood.data_vars)
+        if len(var_names) > 1:
+            if single_var:
+                raise TypeError(
+                    f"Found several log likelihood arrays {var_names}, var_name "
+                    "cannot be None"
+                )
+            return idata.log_likelihood[var_names]
+        return idata.log_likelihood[var_names[0]]
+    try:
+        return idata.log_likelihood[var_name]
+    except KeyError as err:
+        raise TypeError(f"No log likelihood data named {var_name} found") from err
+
+
+def _logsumexp(ary, *, b=None, b_inv=None, axis=None, keepdims=False):
+    """Numerically stable host logsumexp with optional scalar scaling.
+
+    ``log(sum(b * exp(ary)))`` along ``axis``; ``b_inv`` is shorthand for
+    ``b = 1/b_inv`` and takes precedence.  Mirrors the numeric semantics of the
+    reference implementation (``pyloo/utils.py:305-359``): integer input is
+    promoted to float64, ``b_inv == 0`` yields ``+inf`` and ``b == 0`` yields
+    ``-inf``.
+    """
+    ary = np.asarray(ary)
+    if np.issubdtype(ary.dtype, np.integer):
+        ary = ary.astype(np.float64)
+
+    if b_inv == 0:
+        shape = _reduced_shape(ary.shape, axis, keepdims)
+        out = np.full(shape, np.inf, dtype=ary.dtype)
+        return out if out.shape else ary.dtype.type(np.inf)
+    if b_inv is None and b == 0:
+        shape = _reduced_shape(ary.shape, axis, keepdims)
+        out = np.full(shape, -np.inf, dtype=ary.dtype)
+        return out if out.shape else ary.dtype.type(-np.inf)
+
+    ary_max = ary.max(axis=axis, keepdims=True)
+    shifted = np.exp(ary - ary_max)
+    summed = shifted.sum(axis=axis, keepdims=keepdims)
+    out = np.log(summed)
+    if b_inv is not None:
+        ary_max = ary_max - np.log(b_inv)
+    elif b:
+        ary_max = ary_max + np.log(b)
+    out = out + (ary_max if keepdims else ary_max.squeeze(axis=_norm_axis(axis, ary.ndim)))
+    if out.ndim == 0:
+        return ary.dtype.type(out)
+    return out
+
+
+def _norm_axis(axis, ndim):
+    if axis is None:
+        return tuple(range(ndim))
+    if isinstance(axis, Sequence):
+        return tuple(a if a >= 0 else ndim + a for a in axis)
+    return (axis if axis >= 0 else ndim + axis,)
+
+
+def _reduced_shape(shape, axis, keepdims):
+    axes = _norm_axis(axis, len(shape))
+    if keepdims:
+        return tuple(1 if i in axes else d for i, d in enumerate(shape))
+    return tuple(d for i, d in enumerate(shape) if i not in axes)

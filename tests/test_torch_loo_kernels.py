@@ -1,0 +1,126 @@
+"""The per-observation scorers against pyloo_tpu's on the same numpy inputs.
+
+Float64 scorers within rtol and atol 1e-12.  The float32 scorer within rtol
+and atol 1e-5 on elpd_i and lppd_i and atol 1e-3 on k, with identical
+``degenerate`` flags: both packages select the same tail exactly, then run
+the float32 signed-log fit with transcendentals an ulp apart, which moves k
+by ~1e-5 at most and elpd by less.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from numpy.testing import assert_allclose
+
+from pyloo_tpu.ops import loo_kernels as jk
+from pyloo_tpu_torch import rcParams
+from pyloo_tpu_torch.ops import loo_kernels as tk
+from pyloo_tpu_torch.ops import topk
+from pyloo_tpu_torch.ops.psis import tail_length
+
+F64 = dict(rtol=1e-12, atol=1e-12)
+S = 2000
+M = tail_length(S)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _cpu_device():
+    old = rcParams["device.device"]
+    rcParams["device.device"] = "cpu"
+    yield
+    rcParams["device.device"] = old
+
+
+def _log_lik(deep: bool, b=24, seed=0):
+    """Normal and Student-t rows; ``deep`` adds a row whose tail lies > 60
+    nats below the row max (the float64 deep-tail guard's other branch)."""
+    rng = np.random.default_rng(seed)
+    ll = rng.normal(-1, 0.7, size=(b, S))
+    ll[: b // 3] = 2.0 * rng.standard_t(3, size=(b // 3, S)) - 1.0
+    ll[b // 3] = -2.5  # constant row: no tail, never smoothed
+    if deep:
+        ll[5] = rng.standard_t(2, size=S) * 8.0 - 30.0
+    return ll
+
+
+def _spy(monkeypatch, name):
+    calls = []
+    real = getattr(tk, name)
+
+    def spy(*a, **kw):
+        calls.append(name)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(tk, name, spy)
+    return calls
+
+
+@pytest.mark.parametrize("deep", [False, True], ids=["linear-fit", "deep-tail-guard"])
+def test_loo_scores_psis_float64(monkeypatch, deep):
+    ll = _log_lik(deep)
+    linear = _spy(monkeypatch, "_gpdfit_from_y")
+    signed_log = _spy(monkeypatch, "_gpdfit_batch")
+    got = tk.loo_scores_psis(torch.from_numpy(ll), M)
+    want = jk.loo_scores_psis(jnp.asarray(ll), M)
+    # the batch-level guard took the branch the data calls for
+    assert (len(linear), len(signed_log)) == ((0, 1) if deep else (1, 0))
+    for g, w in zip(got, want):
+        assert_allclose(g.numpy(), np.asarray(w), **F64)
+
+
+@pytest.mark.parametrize("route", ["torch", "cuda"])
+def test_loo_scores_psis_fast_float32(route):
+    # "cuda" on a CPU tensor runs the fused branch over the prepass's plain
+    # version; "torch" is the plain scorer (pyloo_tpu's CPU cascade branch)
+    ll = _log_lik(deep=True, seed=1).astype(np.float32)
+    ll[7, ::9] = -np.inf  # x = +inf entries, as a log-lik of -inf gives
+    got = tk.loo_scores_psis_fast(torch.from_numpy(ll), M, route=route)
+    want = jk.loo_scores_psis_fast(jnp.asarray(ll), M)
+    e, k, lppd, degen = (g.numpy() for g in got)
+    we, wk, wlppd, wdegen = (np.asarray(w) for w in want)
+    np.testing.assert_array_equal(degen, wdegen)
+    assert_allclose(e, we, rtol=1e-5, atol=1e-5)
+    assert_allclose(lppd, wlppd, rtol=1e-5, atol=1e-5)
+    assert_allclose(k, wk, rtol=0, atol=1e-3)
+
+
+def test_loo_scores_psis_fast_default_route_on_cpu():
+    ll = torch.from_numpy(_log_lik(deep=False, b=6).astype(np.float32))
+    before = topk.loo_prepass.launches
+    got = tk.loo_scores_psis_fast(ll, M)
+    want = tk.loo_scores_psis_fast(ll, M, route="torch")
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+    assert topk.loo_prepass.launches == before
+
+
+@pytest.mark.parametrize("fn", ["loo_scores_sis", "loo_scores_tis", "mixture_scores"])
+def test_sis_tis_mixture(fn):
+    ll = _log_lik(deep=False, b=12, seed=2)
+    got = getattr(tk, fn)(torch.from_numpy(ll))
+    want = getattr(jk, fn)(jnp.asarray(ll))
+    for g, w in zip(got, want):
+        assert_allclose(g.numpy(), np.asarray(w), **F64)
+
+
+def test_float32_cutoff_tie_moves_k_as_in_pyloo_tpu():
+    # Two draws that straddle the float64 tail cutoff by 1e-10 round to one
+    # float32 value, so the strict-> tail loses an element in float32 and k
+    # moves by ~1e-2, beyond the float32 envelope's 2e-3 (rare: one row in
+    # 250,000 logistic-regression rows, on an H100 and on the CPU alike).
+    # The port's float32 path moves exactly as pyloo_tpu's does.
+    rng = np.random.default_rng(9)
+    ll = rng.normal(-1, 0.7, size=(4, S))
+    for row in ll:
+        order = np.argsort(row)  # ascending log-lik: descending x = -ll
+        v = float(np.float32(row[order[M]]))
+        row[order[M - 1]], row[order[M]] = v - 1e-10, v + 1e-10
+    e64, k64, _ = (a.numpy() for a in tk.loo_scores_psis(torch.from_numpy(ll), M))
+    e32, k32, _, _ = (
+        a.numpy() for a in tk.loo_scores_psis_fast(torch.from_numpy(ll.astype(np.float32)), M)
+    )
+    jk32 = np.asarray(jk.loo_scores_psis_fast(jnp.asarray(ll.astype(np.float32)), M)[1])
+    assert_allclose(k32, jk32, rtol=0, atol=1e-5)
+    assert (np.abs(k32 - k64) > 2e-3).all()
+    assert_allclose(e32, e64, rtol=1e-4, atol=1e-4)  # elpd stays in the envelope
