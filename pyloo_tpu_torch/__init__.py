@@ -1,7 +1,8 @@
 """pyloo_tpu_torch: PSIS leave-one-out cross-validation in PyTorch, for CUDA.
 
-The PyTorch port of ``pyloo_tpu``.  This slice covers ``loo()`` on a
-log-likelihood matrix (PSIS, SIS, TIS, mixture), in float64 (the default,
+The PyTorch port of ``pyloo_tpu``.  It covers ``loo()`` on a log-likelihood
+matrix (PSIS, SIS, TIS, mixture) and ``loo_streaming()`` over a
+log-likelihood made on the device chunk by chunk, in float64 (the default,
 reference-exact) or float32 (through a hand-written CUDA prepass kernel).
 The device is ``rcParams["device.device"]`` (``"cuda"`` by default; set
 ``"cpu"`` to compute on the CPU).
@@ -20,10 +21,13 @@ from .data import load_example_data
 from .elpd import ELPDData
 from .loo import loo
 from .rcparams import rcParams
+from .streaming import clear_streaming_cache, loo_streaming
 from .utils import from_dict
 
 __all__ = [
     "loo",
+    "loo_streaming",
+    "clear_streaming_cache",
     "rcParams",
     "load_example_data",
     "from_dict",

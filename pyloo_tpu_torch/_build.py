@@ -1,6 +1,7 @@
 """Build and load the package's CUDA kernels.
 
-The sources under ``csrc/`` are compiled with ``nvcc`` for ``sm_90a`` into a
+The sources under ``csrc/`` are compiled with ``nvcc`` for ``sm_90a``, one
+``nvcc`` process per source, all started together, and linked into one
 shared library with a plain C interface, loaded with :mod:`ctypes`.  The
 build happens at the first kernel launch (never at import), from the
 package's own sources, into ``build/pyloo_tpu_torch/`` beside the package.
@@ -22,10 +23,10 @@ __all__ = ["BUILD_DIR", "build", "load"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "pyloo_tpu_torch"
-_SOURCES = ("topk_prepass.cu",)
+_SOURCES = ("topk_prepass.cu", "topk_bitonic.cu")
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _VOID_P = ctypes.c_void_p
@@ -60,17 +61,32 @@ def build() -> Path:
     if lib_path.exists():
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", tmp, *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n{build_log}"
-        )
-    os.replace(tmp, lib_path)  # atomic: a concurrent loader never sees half a file
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    try:
+        objs = [work / f"{src.stem}.o" for src in sources]
+        compiles = [
+            [_nvcc(), *_NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            for src, obj in zip(sources, objs)
+        ]
+        procs = [
+            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for cmd in compiles
+        ]
+        outs = [proc.communicate()[0] for proc in procs]
+        build_log = "".join(outs)
+        for cmd, proc, out in zip(compiles, procs, outs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n{out}")
+        tmp = work / lib_path.name
+        link = [_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed (exit {proc.returncode}):\n{' '.join(link)}\n{proc.stdout}{proc.stderr}"
+            )
+        os.replace(tmp, lib_path)  # atomic: a concurrent loader never sees half a file
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return lib_path
 
 
@@ -88,6 +104,10 @@ def load() -> ctypes.CDLL:
             _INT, _VOID_P, _INT, _INT, _INT, _INT, _VOID_P, _VOID_P,
         ]
         lib.pyloo_topk_desc_f32.restype = _INT
+        for name in ("pyloo_topk_reshape_f32", "pyloo_topk_natural_f32"):
+            fn = getattr(lib, name)
+            fn.argtypes = [_INT, _VOID_P, _INT, _INT, _INT, _INT, _VOID_P, _VOID_P]
+            fn.restype = _INT
         lib.pyloo_error_string.argtypes = [_INT]
         lib.pyloo_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -1,18 +1,23 @@
 """Exact per-row top-k and the fused PSIS-LOO prepass: kernel wrappers.
 
-Counterpart of ``pyloo_tpu/ops/pallas_topk.py``.  Two hand-written CUDA
-kernels for Hopper (``csrc/topk_prepass.cu``, one templated kernel with the
-reductions switched on or off) replace the TPU's Pallas kernels:
+Counterpart of ``pyloo_tpu/ops/pallas_topk.py``.  Hand-written CUDA kernels
+for Hopper replace the TPU's Pallas kernels:
 
-* kernel A, :func:`loo_prepass` — ``_kernel_fused`` (``pallas_loo_prepass``);
-* kernel B, :func:`topk_desc` — ``_kernel_roll``
-  (``pallas_topk_desc(variant="roll")``).
+* kernel A, :func:`loo_prepass` — ``_kernel_fused`` (``pallas_loo_prepass``),
+  in ``csrc/topk_prepass.cu``;
+* kernel B, :func:`topk_desc` with ``variant="roll"`` — ``_kernel_roll``, a
+  radix select in the same source (one templated kernel with the reductions
+  switched on or off);
+* kernels C and D, :func:`topk_desc` with ``variant="reshape"`` and
+  ``"natural"`` — ``_kernel`` and ``_kernel_natural``, bitonic sorting
+  networks over 256-wide segments, in ``csrc/topk_bitonic.cu``.
 
 Each wrapper launches its kernel for a CUDA tensor, counts the launch in its
-``launches`` attribute, and raises when the kernel does not take the input.
-For a tensor on the CPU it returns its plain PyTorch version
-(:func:`loo_prepass_plain`, :func:`topk_desc_plain`): the same contract from
-``torch.topk`` and masked sums, which the CPU tests compare with the JAX
+``launches`` attribute (for :func:`topk_desc`, a dict keyed by variant), and
+raises when the kernel does not take the input.  For a tensor on the CPU it
+returns its plain PyTorch version (:func:`loo_prepass_plain`,
+:func:`topk_desc_plain`, :func:`topk_desc_reshape_plain`,
+:func:`topk_desc_natural_plain`), which the CPU tests compare with the JAX
 package.  A CUDA tensor never falls back to the plain version.
 """
 
@@ -33,8 +38,12 @@ __all__ = [
     "loo_prepass",
     "loo_prepass_plain",
     "loo_prepass_multi",
+    "BITONIC_MAX_K",
+    "TOPK_VARIANTS",
     "topk_desc",
     "topk_desc_plain",
+    "topk_desc_reshape_plain",
+    "topk_desc_natural_plain",
 ]
 
 # One block holds one row in shared memory: (S + 1024) float32 must fit the
@@ -43,6 +52,13 @@ __all__ = [
 # Must equal kMaxS / kMaxK in csrc/topk_prepass.cu (which refuses larger).
 MAX_S = 32768
 MAX_K = 1024
+# Kernels C and D keep each 256-wide segment's top 256, so k <= 256 (the TPU
+# kernels' list height); their S cap is MAX_S (the row, padded to a power of
+# two of segments, in shared memory).  Must equal kMaxK / kMaxS in
+# csrc/topk_bitonic.cu.
+_SEG = 256
+BITONIC_MAX_K = _SEG
+TOPK_VARIANTS = ("roll", "reshape", "natural")
 # log(float64 tiny): the reference's tail-cutoff floor (pyloo psis.py:90)
 _CUTOFF_FLOOR = float(math.log(2.2250738585072014e-308))
 
@@ -218,7 +234,7 @@ def loo_prepass_multi(x: torch.Tensor, k: int, parts: int):
 
 
 # --------------------------------------------------------------------------
-# Kernel B: exact top-k values
+# Kernels B, C and D: exact top-k values
 # --------------------------------------------------------------------------
 
 
@@ -227,27 +243,114 @@ def topk_desc_plain(x: torch.Tensor, k: int) -> torch.Tensor:
     return torch.topk(x, k, dim=1, sorted=True).values
 
 
-def topk_desc(x: torch.Tensor, k: int) -> torch.Tensor:
-    """Kernel B: exact top-k values of each row of a float32 ``(B, S)`` tensor.
+def _sorted_segments(x: torch.Tensor, natural: bool) -> torch.Tensor:
+    """``(B, n_segs, 256)``: the row padded with -inf to a power of two of
+    256-wide segments, each sorted descending (odd ones ascending if
+    ``natural``)."""
+    b, s = x.shape
+    n_segs = 1
+    while n_segs * _SEG < s:
+        n_segs *= 2
+    x = torch.nn.functional.pad(x, (0, n_segs * _SEG - s), value=-math.inf)
+    v = torch.sort(x.reshape(b, n_segs, _SEG), dim=-1, descending=True).values
+    if natural:
+        v[:, 1::2] = v[:, 1::2].flip(-1)
+    return v
 
-    Same input contract as :func:`loo_prepass`; returns ``(B, k)`` descending,
-    bitwise equal to :func:`topk_desc_plain` as a multiset of values.
+
+def _bitonic_merge_desc(v: torch.Tensor) -> torch.Tensor:
+    """Sort bitonic 256-lists (last axis) descending: 8 half-cleaner stages."""
+    shape = v.shape
+    stride = _SEG // 2
+    while stride >= 1:
+        w = v.reshape(*shape[:-1], _SEG // (2 * stride), 2, stride)
+        hi = torch.maximum(w[..., 0, :], w[..., 1, :])
+        lo = torch.minimum(w[..., 0, :], w[..., 1, :])
+        v = torch.stack([hi, lo], dim=-2).reshape(shape)
+        stride //= 2
+    return v
+
+
+def topk_desc_reshape_plain(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Plain version of kernel C, in its merge scheme: ``torch.sort`` of the
+    256-wide segments, then rounds of ``max(A_i, B_{255-i})`` (``flip``) over
+    segment pairs, each re-sorted by a bitonic half-cleaner network."""
+    v = _sorted_segments(x, natural=False)
+    while v.shape[1] > 1:
+        v = _bitonic_merge_desc(torch.maximum(v[:, 0::2], v[:, 1::2].flip(-1)))
+    return v[:, 0, :k]
+
+
+def topk_desc_natural_plain(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Plain version of kernel D, in its merge scheme: segments sorted in
+    alternating directions, rounds of ``max(A_i, B_i)`` with no reversal,
+    each survivor re-sorted in the direction of its parity in the next round
+    (a half-cleaner sorts descending; ascending is its reversal)."""
+    v = _sorted_segments(x, natural=True)
+    while v.shape[1] > 1:
+        v = _bitonic_merge_desc(torch.maximum(v[:, 0::2], v[:, 1::2]))
+        v[:, 1::2] = v[:, 1::2].flip(-1)
+    return v[:, 0, :k]
+
+
+_TOPK_PLAIN = {
+    "roll": topk_desc_plain,
+    "reshape": topk_desc_reshape_plain,
+    "natural": topk_desc_natural_plain,
+}
+_TOPK_ENTRY = {
+    "roll": "pyloo_topk_desc_f32",
+    "reshape": "pyloo_topk_reshape_f32",
+    "natural": "pyloo_topk_natural_f32",
+}
+
+
+def _check_variant(variant: str, k: int) -> None:
+    if variant not in _TOPK_ENTRY:
+        raise ValueError(f"unknown top-k variant {variant!r}; expected one of {TOPK_VARIANTS}")
+    if variant != "roll" and k > BITONIC_MAX_K:
+        raise ValueError(f"variant {variant!r} supports only k <= {BITONIC_MAX_K}; use 'roll'")
+
+
+def _topk_prepare(x: torch.Tensor, k: int):
+    """What :func:`topk_desc` does on the host before a launch: the launch
+    arguments and the output.  Returns ``(device, ld, stream, vals)``."""
+    device, ld, stream = _launch_args(x)
+    vals = torch.empty((x.shape[0], k), dtype=x.dtype, device=x.device)
+    return device, ld, stream, vals
+
+
+def _topk_launch(variant: str, x: torch.Tensor, k: int, prepared) -> None:
+    """Launch one top-k kernel on prepared arguments (counts nothing)."""
+    device, ld, stream, vals = prepared
+    lib = _build.load()
+    code = getattr(lib, _TOPK_ENTRY[variant])(
+        device, x.data_ptr(), x.shape[0], x.shape[1], ld, k, vals.data_ptr(), stream
+    )
+    _raise_on(code, lib, f"topk_desc({variant})")
+
+
+def topk_desc(x: torch.Tensor, k: int, variant: str = "roll") -> torch.Tensor:
+    """Exact top-k values of each row of a float32 ``(B, S)`` tensor.
+
+    ``variant`` picks the kernel, as in ``pallas_topk_desc``: ``"roll"`` is
+    kernel B (radix select, k <= 1024), ``"reshape"`` kernel C and
+    ``"natural"`` kernel D (bitonic networks over 256-wide segments, k <=
+    256, S <= 32768: one row in shared memory).  Same input contract as
+    :func:`loo_prepass`; returns ``(B, k)`` descending, bitwise equal to
+    ``torch.topk`` as a multiset of values.  Launches are counted in
+    ``topk_desc.launches[variant]``.
     """
     _check(x, k)
+    _check_variant(variant, k)
     if x.device.type == "cpu":
-        return topk_desc_plain(x, k)
-    device, ld, stream = _launch_args(x)
-    b = x.shape[0]
-    vals = torch.empty((b, k), dtype=x.dtype, device=x.device)
-    if b == 0:
-        return vals
-    lib = _build.load()
-    code = lib.pyloo_topk_desc_f32(
-        device, x.data_ptr(), b, x.shape[1], ld, k, vals.data_ptr(), stream
-    )
-    _raise_on(code, lib, "topk_desc")
-    topk_desc.launches += 1
-    return vals
+        return _TOPK_PLAIN[variant](x, k)
+    prepared = _topk_prepare(x, k)
+    if x.shape[0] == 0:
+        return prepared[3]
+    _topk_launch(variant, x, k, prepared)
+    topk_desc.launches[variant] += 1
+    return prepared[3]
 
 
-topk_desc.launches = 0
+topk_desc.launches = dict.fromkeys(TOPK_VARIANTS, 0)

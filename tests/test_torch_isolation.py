@@ -20,10 +20,15 @@ sys.modules["pandas"] = None
 sys.path.insert(0, {repo!r})
 import torch
 import pyloo_tpu_torch as pl
+import pyloo_tpu_torch.streaming
+import pyloo_tpu_torch.ops.topk_profile
 
 pl.rcParams["device.device"] = "cpu"
 res = pl.loo(pl.load_example_data("centered_eight"))
 assert round(res["elpd_loo"], 4) == -30.7807, res["elpd_loo"]
+ll = torch.randn(40, 100, dtype=torch.float64)
+res = pl.loo_streaming(lambda idx: ll[idx], 40, 100, chunk_size=16)
+assert res["n_data_points"] == 40
 loaded = [m for m, mod in sys.modules.items() if mod is not None]
 assert not any(m == "pyloo_tpu" or m.startswith(("pyloo_tpu.", "jax")) for m in loaded)
 

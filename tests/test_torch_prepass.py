@@ -165,7 +165,7 @@ def test_topk_vals_desc_routes():
         got.numpy(), np.asarray(jax.lax.top_k(jnp.asarray(x64.numpy()), 700)[0])
     )
     x32 = x64[:, :3000].float()
-    before = topk.topk_desc.launches
+    before = dict(topk.topk_desc.launches)
     np.testing.assert_array_equal(
         topk_vals_desc(x32, 191).numpy(), topk.topk_desc_plain(x32, 191).numpy()
     )
