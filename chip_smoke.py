@@ -9,14 +9,18 @@ Phases:
 0. the card (``nvidia-smi`` name and power limit) and the kernel build (one
    ``nvcc`` per source, started together);
 1. kernels A and B against their plain PyTorch versions at the shapes the
-   main path gives them, with their times at 131,072 x 4,000;
+   main paths give them (131,072 x 4,000; 16,384 x 16,000; 4,096 x 32,768;
+   one part and the merge of phase 2b's 80,000 draws), with their times,
+   blocks per SM and the rows whose candidates overflowed the kernels' buffer,
+   counted against the plain version of the kernels' selection scheme;
 1b. kernels C and D (``topk_desc(variant="reshape"|"natural")``) against
    their plain versions and ``torch.topk``, with their times; then the
    profiling harness (kernel E) over the three top-k variants at
    125,000 x 4,000 -> 191;
 2. ``loo()`` in float32 at 1,000,000 observations x 4,000 draws (a logistic
    regression with 32 features, made on the card from a seed), through the
-   fused prepass kernel, checked against the plain scorer on the card; then
+   fused prepass kernel, checked against the plain scorer on the card (which
+   launches no kernel, counted); then
    ``loo()`` at 80,000 draws, through the multipass split and its top-k
    merge;
 3. the default float64 path on the first 250,000 observations, held to the
@@ -92,8 +96,9 @@ def zero_counts() -> None:
     profile_topk_desc.launches = 0
 
 
-def read_counts() -> dict:
-    """The launch counters (just after a main path), added to PATH_LAUNCHES."""
+def read_counts(main_path: bool = True) -> dict:
+    """The launch counters (just after a main path), added to PATH_LAUNCHES
+    when the window was a main path's."""
     from pyloo_tpu_torch.ops import topk
     from pyloo_tpu_torch.ops.topk_profile import profile_topk_desc
 
@@ -101,8 +106,9 @@ def read_counts() -> dict:
     got = {"A": topk.loo_prepass.launches, "B": by_variant["roll"],
            "C": by_variant["reshape"], "D": by_variant["natural"],
            "E": profile_topk_desc.launches}
-    for name, n in got.items():
-        PATH_LAUNCHES[name] += n
+    if main_path:
+        for name, n in got.items():
+            PATH_LAUNCHES[name] += n
     return got
 
 
@@ -119,7 +125,9 @@ def topk_bound(b: int, s: int, k: int):
 
 
 def smoke_rows(b: int, s: int, gen):
-    """x = -log_lik rows: normal, a full-row tie, some -inf, a heavy tail."""
+    """x = -log_lik rows: normal, a full-row tie, some -inf, a heavy tail,
+    values that all share their top 12 bits (kernels A and B's candidate
+    buffer overflows), and +0.0 and -0.0 mixed with the k-th value among them."""
     import torch
 
     ll = torch.randn(b, s, device="cuda", generator=gen) * 0.8 - 1.0
@@ -128,7 +136,87 @@ def smoke_rows(b: int, s: int, gen):
     z = torch.randn(4, s, device="cuda", generator=gen)
     t3 = z[0] / torch.sqrt(z[1:].square().sum(dim=0) / 3.0)  # Student-t, 3 dof
     ll[2] = 2.0 * t3 - 1.0  # heavy tail
+    mantissa = torch.randint(0, 2**20, (s,), device="cuda", generator=gen)
+    ll[3] = -(1.0 + mantissa.float() * 2.0**-23)  # x in [1, 1.125): one first digit
+    signs = torch.rand(s, device="cuda", generator=gen) < 0.5
+    ll[4] = torch.where(signs, 0.0, -0.0)
+    ll[4, ::50] = torch.randn(ll[4, ::50].shape, device="cuda", generator=gen)
     return (-ll).contiguous()
+
+
+def hold_prepass(kern: dict, x, k: int, what: str) -> None:
+    """Kernel A against its plain version: vals and C bitwise, the sums
+    within rtol 2e-6, atol 1e-6."""
+    import torch
+
+    from pyloo_tpu_torch.ops import topk
+
+    got = topk.loo_prepass(x, k)
+    want = topk.loo_prepass_plain(x, k)
+    torch.cuda.synchronize()
+    same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    err = max(float((g - w).abs().max()) for g, w in zip(got[2:], want[2:]))
+    close = all(torch.allclose(g, w, rtol=2e-6, atol=1e-6) for g, w in zip(got[2:], want[2:]))
+    kern["max_abs_err"] = max(kern["max_abs_err"], err)
+    check(same and close, f"kernel A {what} k={k}: vals, C bitwise; log_ntl, log_sum_ll"
+          f" max |err| {err:.3g} (rtol 2e-6, atol 1e-6)")
+
+
+def hold_topk(kern: dict, x, k: int, what: str) -> None:
+    """Kernel B against torch.topk, bitwise."""
+    import torch
+
+    from pyloo_tpu_torch.ops import topk
+
+    got = topk.topk_desc(x, k)
+    want = topk.topk_desc_plain(x, k)
+    torch.cuda.synchronize()
+    kern["max_abs_err"] = max(kern["max_abs_err"], float((got - want).abs().nan_to_num().max()))
+    check(torch.equal(got, want), f"kernel B {what} k={k}: bitwise to torch.topk")
+
+
+def time_kernel(kern: dict, name: str, fn, plain, x, k: int, bound, library) -> dict:
+    """Times of a kernel, its plain version (before and after) and the
+    library call at one shape, with the kernel's blocks per SM; printed and
+    added to ``kern["by_shape"]``."""
+    from pyloo_tpu_torch.ops import topk
+
+    rows, s = x.shape
+    row = {"shape": [rows, s, k], "plain_ms": median_ms(lambda: plain(x, k)),
+           "ms": median_ms(lambda: fn(x, k))}
+    row["plain_ms_after"] = median_ms(lambda: plain(x, k))
+    row["bound_ms"], row["bound_by"] = bound
+    row["library_ms"] = median_ms(lambda: library(x, k)) if library else None
+    row["blocks_per_sm"] = topk.blocks_per_sm(s, k, fused=name == "loo_prepass")
+    kern["by_shape"].append(row)
+    lib = f", torch.topk {row['library_ms']:.3f} ms" if library else ""
+    print(f"  time  {name} ({rows}, {s}) k={k}: kernel {row['ms']:.3f} ms"
+          f" ({100 * row['bound_ms'] / row['ms']:.0f}% of the {row['bound_ms']:.3f} ms bound),"
+          f" plain {row['plain_ms']:.3f} / {row['plain_ms_after']:.3f} ms (before / after){lib};"
+          f" {row['blocks_per_sm']} blocks per SM", flush=True)
+    return row
+
+
+def prepass_bound(rows: int, s: int, k: int):
+    """A reads the row once and writes k values and three scalars; per
+    element it shifts, compares, takes two exps and adds twice."""
+    return bound_ms(4.0 * (rows * s + rows * k + 3 * rows), 6.0 * rows * s)
+
+
+def hold_overflow(x, k: int, what: str) -> None:
+    """Rows whose candidates overflow the buffer: counted by kernels A and B
+    on the first 2,048 rows, against the plain version of their scheme."""
+    from pyloo_tpu_torch.ops import topk
+
+    sub = x[:2_048]
+    topk.overflow_rows(reset=True)
+    topk.loo_prepass(sub, k)
+    n_a = topk.overflow_rows(reset=True)
+    topk.topk_desc(sub, k)
+    n_b = topk.overflow_rows(reset=True)
+    n_plain = int(topk.topk_radix_plain(sub, k)[1].sum())
+    check(n_a == n_b == n_plain, f"{what} k={k}: overflow rows of the first 2,048: A {n_a},"
+          f" B {n_b}, plain scheme {n_plain}")
 
 
 def phase_kernels(kernels: dict, tail_length) -> None:
@@ -136,49 +224,47 @@ def phase_kernels(kernels: dict, tail_length) -> None:
 
     from pyloo_tpu_torch.ops import topk
 
-    print("phase 1: kernels against their plain versions", flush=True)
+    print("phase 1: kernels A and B against their plain versions", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(1)
     a, b = kernels["loo_prepass"], kernels["topk_desc"]
+    a["by_shape"], b["by_shape"] = [], []
+    topk_values = lambda x, k: torch.topk(x, k, dim=1).values  # noqa: E731
     for rows, s in [(131_072, 4_000), (16_384, 16_000), (4_096, 32_768)]:
         k = tail_length(s) + 1
         x = smoke_rows(rows, s, gen)
-        got = topk.loo_prepass(x, k)
-        want = topk.loo_prepass_plain(x, k)
-        torch.cuda.synchronize()
-        same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-        err = max(float((g - w).abs().max()) for g, w in zip(got[2:], want[2:]))
-        close = all(
-            torch.allclose(g, w, rtol=2e-6, atol=1e-6) for g, w in zip(got[2:], want[2:])
-        )
-        a["max_abs_err"] = max(a["max_abs_err"], err)
-        check(same and close, f"kernel A ({rows}, {s}) k={k}: vals, C bitwise;"
-              f" log_ntl, log_sum_ll max |err| {err:.3g} (rtol 2e-6, atol 1e-6)")
-        got_b = topk.topk_desc(x, k)
-        want_b = topk.topk_desc_plain(x, k)
-        torch.cuda.synchronize()
-        b["max_abs_err"] = max(b["max_abs_err"], float((got_b - want_b).abs().nan_to_num().max()))
-        check(torch.equal(got_b, want_b), f"kernel B ({rows}, {s}) k={k}: bitwise to torch.topk")
+        topk.overflow_rows(reset=True)
+        hold_prepass(a, x, k, f"({rows}, {s})")
+        hold_topk(b, x, k, f"({rows}, {s})")
+        print(f"  rows  ({rows}, {s}): {topk.overflow_rows(reset=True)} rows overflowed the"
+              f" candidate buffer ({topk.candidate_cap(k)} keys) in kernels A and B together",
+              flush=True)
+        hold_overflow(x, k, f"({rows}, {s})")
+        row_a = time_kernel(a, "loo_prepass", topk.loo_prepass, topk.loo_prepass_plain, x, k,
+                            prepass_bound(rows, s, k), None)
+        row_b = time_kernel(b, "topk_desc", topk.topk_desc, topk.topk_desc_plain, x, k,
+                            topk_bound(rows, s, k), topk_values)
         if s == 4_000:
-            for name, kern, plain in [
-                ("loo_prepass", topk.loo_prepass, topk.loo_prepass_plain),
-                ("topk_desc", topk.topk_desc, topk.topk_desc_plain),
-            ]:
-                kernels[name]["plain_ms"] = median_ms(lambda: plain(x, k))
-                kernels[name]["ms"] = median_ms(lambda: kern(x, k))
-                kernels[name]["plain_ms_after"] = median_ms(lambda: plain(x, k))
-                print(f"  time  {name} ({rows}, {s}) k={k}: kernel"
-                      f" {kernels[name]['ms']:.3f} ms, plain {kernels[name]['plain_ms']:.3f}"
-                      f" / {kernels[name]['plain_ms_after']:.3f} ms (before / after)", flush=True)
-            # A reads the row once and writes k values and three scalars; per
-            # element it shifts, compares, takes two exps and adds twice
-            a["bound_ms"], a["bound_by"] = bound_ms(4.0 * (rows * s + rows * k + 3 * rows),
-                                                    6.0 * rows * s)
-            a["library_ms"] = None  # no single PyTorch call computes the prepass
-            b["bound_ms"], b["bound_by"] = topk_bound(rows, s, k)
-            b["library_ms"] = median_ms(lambda: torch.topk(x, k, dim=1).values)
-            print(f"  time  torch.topk ({rows}, {s}) k={k}: {b['library_ms']:.3f} ms; bounds"
-                  f" A {a['bound_ms']:.3f} ms, B {b['bound_ms']:.3f} ms", flush=True)
-        del x, got, want, got_b, want_b
+            for kern, row in ((a, row_a), (b, row_b)):
+                for key in ("ms", "plain_ms", "plain_ms_after", "bound_ms", "bound_by",
+                            "library_ms"):
+                    kern[key] = row[key]
+        del x
+
+    # phase 2b's shapes: kernel A on one part of an 80,000-draw row (a view
+    # at an unaligned column offset), kernel B on the merge of the parts
+    s = 80_000
+    k = tail_length(s) + 1
+    parts = topk.multipass_parts(s, k)
+    part_s = -(-s // parts)
+    x = smoke_rows(8_192, s, gen)[:, part_s : 2 * part_s]
+    hold_prepass(a, x, k, f"part (8192, {part_s}) at column {part_s}")
+    time_kernel(a, "loo_prepass", topk.loo_prepass, topk.loo_prepass_plain, x, k,
+                prepass_bound(8_192, part_s, k), None)
+    x = smoke_rows(8_192, parts * k, gen)
+    hold_topk(b, x, k, f"merge (8192, {parts * k})")
+    time_kernel(b, "topk_desc", topk.topk_desc, topk.topk_desc_plain, x, k,
+                topk_bound(8_192, parts * k, k), topk_values)
+    del x
 
     rows, s = 1_024, 100_000
     k = tail_length(s) + 1
@@ -383,7 +469,11 @@ def phase_main_path(pl, kernels: dict):
     ]:
         x = obs_major(ll, n_rows)
         fused = loo_scores_psis_fast(x, m)
+        zero_counts()
         plain = loo_scores_psis_fast(x, m, route="torch")
+        launched = read_counts(main_path=False)
+        check(not any(launched.values()), f"{name}: the plain scorer launched no kernel"
+              f" ({launched})")
         e, k_plain, dg_plain = (plain[0].cpu().numpy(), plain[1].cpu().numpy(), plain[3].cpu().numpy())
         ok = (
             np.allclose(result.loo_i.values[:n_rows], e, rtol=1e-5, atol=1e-5)
@@ -668,7 +758,7 @@ def main() -> int:
         print(f"chip_smoke: {len(_FAILURES)} check(s) failed", file=sys.stderr)
         return 1
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms", "torch_topk_ms", "splits")
+            "bound_ms", "bound_by", "library_ms", "torch_topk_ms", "by_shape", "splits")
     print(json.dumps({"kernels": [
         {key: kern[key] for key in keys if key in kern} for kern in kernels.values()
     ]}))

@@ -97,13 +97,15 @@ def load() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         lib.pyloo_loo_prepass_f32.argtypes = [
             _INT, _VOID_P, _INT, _INT, _INT, _INT,
-            _VOID_P, _VOID_P, _VOID_P, _VOID_P, _VOID_P,
+            _VOID_P, _VOID_P, _VOID_P, _VOID_P, _VOID_P, _VOID_P,
         ]
         lib.pyloo_loo_prepass_f32.restype = _INT
         lib.pyloo_topk_desc_f32.argtypes = [
-            _INT, _VOID_P, _INT, _INT, _INT, _INT, _VOID_P, _VOID_P,
+            _INT, _VOID_P, _INT, _INT, _INT, _INT, _VOID_P, _VOID_P, _VOID_P,
         ]
         lib.pyloo_topk_desc_f32.restype = _INT
+        lib.pyloo_prepass_blocks_per_sm.argtypes = [_INT, _INT, _INT, _INT]
+        lib.pyloo_prepass_blocks_per_sm.restype = _INT
         for name in ("pyloo_topk_reshape_f32", "pyloo_topk_natural_f32"):
             fn = getattr(lib, name)
             fn.argtypes = [_INT, _VOID_P, _INT, _INT, _INT, _INT, _VOID_P, _VOID_P]

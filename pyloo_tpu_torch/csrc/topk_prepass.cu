@@ -2,69 +2,91 @@
 // prepass reductions fused in or compiled out.
 //
 // Replaces two Pallas TPU kernels of pyloo_tpu/ops/pallas_topk.py:
-//   * kernel A, loo_prepass_kernel<true>: _kernel_fused (pallas_topk.py:314),
-//     entered through pallas_loo_prepass.  Per row of x = -log_lik:
+//   * kernel A, loo_prepass_kernel<true, .>: _kernel_fused
+//     (pallas_topk.py:314), entered through pallas_loo_prepass.  Per row of
+//     x = -log_lik:
 //       C          = max x
 //       vals       = exact top-k of (x - C), descending
 //       xcut       = max(vals[k-1], log(float64 tiny))
 //       log_ntl    = xcut + log sum_{x - C <= xcut} exp(x - C - xcut)
 //       log_sum_ll = -min x + log sum exp(min x - x)
 //     with -inf entries left out of the min and of the lppd sum.
-//   * kernel B, loo_prepass_kernel<false>: _kernel_roll (pallas_topk.py:212),
-//     entered through pallas_topk_desc(variant="roll"): the exact top-k
-//     values of each row of x, descending, without indices.
+//   * kernel B, loo_prepass_kernel<false, .>: _kernel_roll
+//     (pallas_topk.py:212), entered through pallas_topk_desc(variant="roll"):
+//     the exact top-k values of each row of x, descending, without indices.
 //
 // What bounds it on the card: one pass over the (B, S) float32 input, so
-// device-memory bandwidth (S = 4000 rows are 16 KB each).  Design: one
-// block per row.  The row is read once from device memory, coalesced, into
-// dynamic shared memory; every later pass (radix select, compaction, the two
-// masked exp-sums) reads shared memory only.  Only k values and three
-// scalars per row are written back.  The TPU layout (128-lane tiles,
-// segment-parity sign flips, lane trees) is not carried over: rows are read
-// in their natural row-major order with a caller-given row stride.
+// device-memory bandwidth (S = 4000 rows are 16 KB each).  What held the
+// first version (one 256-thread block per row, four 8-bit radix passes over
+// the row in shared memory, a compaction pass, a block-wide bitonic sort and
+// a sums pass) at 12% of that bound was latency: six passes, ~58 block
+// barriers a row.  Here one warp takes a row, so no step waits on a block
+// barrier, and many rows are in flight on each SM:
+//   1. load: the warp streams its row from device memory in 16-byte loads,
+//      takes max and min, and counts the first radix digit, the top 12 bits
+//      of the order key of the raw value (sign, exponent, three mantissa
+//      bits), into a 4096-bin histogram in shared memory.  Selecting on the
+//      raw row is exact: x -> fl(x - C) never reverses an order, so the top
+//      k of x - C are the shifted top k of x;
+//   2. a two-level warp scan of the histogram finds the bin of the k-th key;
+//   3. a second pass over the row (from the L2 cache, where the first pass
+//      asked it to stay) appends every key in or above that bin to a
+//      candidate buffer (warp votes give the slots, no atomics), and kernel A
+//      sums the lppd term exp(min - x) and the non-tail mass of the keys
+//      below the bin, against that bin's lower edge;
+//   4. two more 10-bit digits over the candidates in the bin give the exact
+//      k-th key; the candidates above it are the winners, and the remaining
+//      slots take the k-th key itself (equal keys are equal bits, so ties are
+//      exact);
+//   5. the warp sorts the winners in registers (P = 32..1024 slots, with
+//      shuffles across lanes) and writes them;
+//   6. kernel A adds the non-tail mass of the candidates under the cutoff to
+//      the mass below the bin, rescaled from the edge to the cutoff.
 //
 // How the hard cases are handled:
-//   * Shared memory above 48 KB: a row of S floats plus the P-slot sort
-//     buffer (P = next power of two >= k) is requested as dynamic shared
-//     memory, after cudaFuncSetAttribute(MaxDynamicSharedMemorySize) on each
-//     launch.  The single-pass cap is S <= kMaxS = 32768 and k <= kMaxK = 1024
-//     ((32768 + 1024) * 4 B = 132 KB of the 227 KB a block may use).  Wider
-//     rows are split by the caller (loo_prepass_multi in ops/topk.py, merged
-//     in torch; the kernel takes a row stride, so the parts are views).
-//     There the multipass boundary rule holds: a part's exclusion test runs
-//     in the part's own domain, bit-identical to the kernel's xs <= xcut, and
-//     inclusion runs in the merged domain.
-//   * Ties at the cutoff: radix select finds the exact bit pattern of the
-//     k-th largest value and how many copies of it belong to the top k.
-//     Elements strictly above it are compacted; the remaining slots are
-//     filled with that bit pattern.  Equal keys mean equal bits, so the
-//     multiset is exact for constant rows and for rows with long tie runs.
-//     The non-tail mass then takes every element <= xcut, as the reference
-//     does (loo_kernels.py:101, pallas_topk.py:345).
-//   * -inf entries: they take part in the selection like any value (a row
-//     with fewer than k finite values returns -inf slots) and add
-//     exp(-inf) = 0 to the non-tail mass; they are masked out of the row min
-//     and the lppd sum, exactly as pallas_topk.py:351-357 masks padding.
-//   * The shift: every pass computes x - C per element in float32 from the
-//     raw row kept in shared memory, the same single rounding the plain
-//     version performs, so vals and C are bitwise equal to it.
+//   * Candidate overflow: when more keys lie in and above the k-th key's bin
+//     than the buffer holds (a constant row, long tie runs), the buffer keeps
+//     only the keys above the bin and step 4 reads the bin's keys from the
+//     row again: the same code, in the kernel.  Such rows are counted in
+//     *overflow when the caller passes a counter.
+//   * The packed histograms hold two 16-bit counts a word (S <= 32768 keeps
+//     every count below 2^16), swizzled so that the scan reads shared memory
+//     without bank conflicts; the candidates and the second histogram reuse
+//     the first one's words once it is scanned.
+//   * Alignment: a row starts anywhere (a caller-given row stride, views at
+//     any column offset); its first and last few values are read one by one.
+//   * The shift: vals are key_value(key) - C, computed from the raw bits in
+//     float32 as the plain version computes x - C, so vals and C are
+//     bitwise equal to it.  -inf entries take part in the selection like
+//     any value and are masked out of the min and the lppd sum.
+//   * The two row sums use the special-function unit's exp (their terms near
+//     1 dominate); the candidates' terms and the rescaling use expf.
 //   * Launch checks: each entry point validates its sizes, returns the error
-//     of cudaFuncSetAttribute, and returns cudaGetLastError() right after the
-//     launch; the Python wrapper raises on any non-zero code.  Nothing here
-//     synchronises or allocates: outputs come from the caller.
+//     of cudaFuncSetAttribute and of the occupancy query, and returns
+//     cudaGetLastError() right after the launch; the Python wrapper raises on
+//     any non-zero code.  Nothing here synchronises or allocates.
 // NaN entries are not supported (loo() replaces them before scoring).
 
 #include <cuda_runtime.h>
+#include <float.h>
 #include <math_constants.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kWarps = 4;  // warps a block; each warp takes its own rows
+constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxS = 32768;
 constexpr int kMaxK = 1024;
-constexpr int kBins = 256;  // radix digit of 8 bits: four passes over a key
+constexpr int kBins1 = 4096;   // first digit: the top 12 bits of the key
+constexpr int kBins2 = 1024;   // then two digits of 10 bits
+// After the first scan the histogram's words hold the candidates (the keys in
+// and above the k-th key's bin), followed by the second histogram.  A wide k
+// brings about as many keys in the bin as above it, so k > 256 gets P / 2
+// more slots (as many as keep 4 blocks a SM at P = 1024).
+__host__ __device__ constexpr int cand_cap(int P) {
+  return kBins1 / 2 - kBins2 / 2 + (P > 256 ? P / 2 : 0);
+}
 constexpr unsigned kFullMask = 0xffffffffu;
 // log(float64 tiny) in float32: the reference's tail-cutoff floor
 constexpr float kCutoffFloor = -708.3964185322641f;
@@ -80,204 +102,443 @@ __device__ __forceinline__ float key_value(uint32_t key) {
   return __uint_as_float(u);
 }
 
-struct MaxOp {
-  __device__ float operator()(float a, float b) const { return fmaxf(a, b); }
-};
-struct MinOp {
-  __device__ float operator()(float a, float b) const { return fminf(a, b); }
-};
-struct AddOp {
-  __device__ float operator()(float a, float b) const { return a + b; }
-};
+// A packed histogram of kBins 16-bit counts (every count <= S <= 32768):
+// bin b counts in half b / W of word b mod W (W = kBins / 2), so bins next to
+// each other never share a word.  The scan gives lane l the kBins / 32 bins
+// below those of lane l - 1: a block of kBins / 32 words, read 16 bytes at a
+// time; the swizzle (a permutation of 4-word groups inside each block) puts
+// the 16-byte reads of 8 lanes in distinct banks.
+template <int kBins>
+__device__ __forceinline__ int hist_word(int w) {
+  constexpr int kPer = kBins / 32;
+  return w ^ (((w / kPer) & 7) << 2);
+}
 
-// Reduce one value per thread to a value every thread receives.
-template <typename Op>
-__device__ float block_reduce(float v, Op op, float* scratch) {
-  for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_xor_sync(kFullMask, v, o));
-  __syncthreads();  // earlier readers of scratch are done
-  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
-  __syncthreads();
-  v = scratch[0];
-  for (int w = 1; w < kWarps; ++w) v = op(v, scratch[w]);
+template <int kBins>
+__device__ __forceinline__ void hist_add(uint32_t* hist, uint32_t bin) {
+  constexpr uint32_t kWords = kBins / 2;
+  atomicAdd(&hist[hist_word<kBins>(bin % kWords)], 1u << (16 * (bin / kWords)));
+}
+
+template <int kBins>
+__device__ __forceinline__ int hist_count(const uint32_t* hist, int bin) {
+  constexpr int kWords = kBins / 2;
+  return (hist[hist_word<kBins>(bin % kWords)] >> (16 * (bin / kWords))) & 0xffff;
+}
+
+__device__ __forceinline__ int warp_incl_scan(int v) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int n = __shfl_up_sync(kFullMask, v, o);
+    if (lane >= o) v += n;
+  }
   return v;
 }
 
-template <bool kFused>
-__global__ void __launch_bounds__(kThreads)
-loo_prepass_kernel(const float* __restrict__ x, int S, int ld, int k, int P,
-                   float* __restrict__ vals, float* __restrict__ c_out,
-                   float* __restrict__ ntl_out, float* __restrict__ ll_out) {
-  extern __shared__ float smem[];
-  float* row = smem;      // S raw values
-  float* cand = row + S;  // P slots: the top k, then -inf padding for the sort
-  __shared__ uint32_t hist[kBins];
-  __shared__ float scratch[kWarps];
-  __shared__ uint32_t s_prefix;
-  __shared__ int s_krem;
-  __shared__ int s_count;
+struct Found {
+  int bin;    // the bin that holds the rank-th largest key
+  int rank;   // the rank within it
+  int count;  // the keys in it
+};
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const size_t r = blockIdx.x;
-  const float* xr = x + r * static_cast<size_t>(ld);
-
-  // Pass over device memory: load the row, take max and (-inf-masked) min.
-  float mx = -CUDART_INF_F;
-  float mn = CUDART_INF_F;
-#pragma unroll 4
-  for (int i = tid; i < S; i += kThreads) {
-    const float v = xr[i];
-    row[i] = v;
-    if (kFused) {
-      mx = fmaxf(mx, v);
-      if (v != -CUDART_INF_F) mn = fminf(mn, v);
+// One warp finds the bin that holds the rank-th largest key (rank >= 1) of a
+// packed histogram: lane sums over ranges of kBins / 32 bins, then over
+// ranges of kBins / 1024 bins inside the range that holds it.
+template <int kBins>
+__device__ __forceinline__ Found warp_find(const uint32_t* hist, int rank) {
+  constexpr int kPer = kBins / 32;
+  constexpr int kSub = kPer / 32;
+  constexpr int kWords = kBins / 2;
+  const int lane = threadIdx.x & 31;
+  const int top = kBins - 1 - kPer * lane;
+  // the lane's block of words, in any order: the swizzle permutes within it
+  const uint4* block = reinterpret_cast<const uint4*>(hist + (top % kWords) - (kPer - 1));
+  const int half = 16 * (top / kWords);
+  int sum = 0;
+#pragma unroll 8
+  for (int q = 0; q < kPer / 4; ++q) {
+    const uint4 w = block[q];
+    sum += ((w.x >> half) & 0xffff) + ((w.y >> half) & 0xffff) + ((w.z >> half) & 0xffff) +
+           ((w.w >> half) & 0xffff);
+  }
+  int incl = warp_incl_scan(sum);
+  int src = __ffs(__ballot_sync(kFullMask, incl - sum < rank && rank <= incl)) - 1;
+  const int above = __shfl_sync(kFullMask, incl - sum, src);
+  const int top2 = kBins - 1 - kPer * src - kSub * lane;
+  int cnt[kSub];
+  sum = 0;
+#pragma unroll
+  for (int q = 0; q < kSub; ++q) {
+    cnt[q] = hist_count<kBins>(hist, top2 - q);
+    sum += cnt[q];
+  }
+  incl = above + warp_incl_scan(sum);
+  const bool mine = incl - sum < rank && rank <= incl;
+  src = __ffs(__ballot_sync(kFullMask, mine)) - 1;
+  Found f{0, 0, 0};
+  if (mine) {
+    int before = incl - sum;
+    bool done = false;
+#pragma unroll
+    for (int q = 0; q < kSub; ++q) {  // unrolled: cnt stays in registers
+      if (!done && before + cnt[q] >= rank) {
+        done = true;
+        f = Found{top2 - q, rank - before, cnt[q]};
+      }
+      if (!done) before += cnt[q];
     }
   }
-  float C = 0.0f;
-  if (kFused) {
-    C = block_reduce(mx, MaxOp(), scratch);
-    mn = block_reduce(mn, MinOp(), scratch);
+  return Found{__shfl_sync(kFullMask, f.bin, src), __shfl_sync(kFullMask, f.rank, src),
+               __shfl_sync(kFullMask, f.count, src)};
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFullMask, v, o));
+  return v;
+}
+__device__ __forceinline__ float warp_min(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(kFullMask, v, o));
+  return v;
+}
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFullMask, v, o);
+  return v;
+}
+
+// A 16-byte load that asks the L2 cache to keep the line (kLast false: the
+// row is read again soon) or to drop it first (kLast: its last read).
+template <bool kLast>
+__device__ __forceinline__ float4 load4(const float4* p) {
+  uint64_t policy;
+  if (kLast) {
+    asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(policy));
   } else {
-    __syncthreads();
+    asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(policy));
   }
-  auto shifted = [&](int i) { return kFused ? row[i] - C : row[i]; };
+  float4 v;
+  asm volatile("ld.global.nc.L2::cache_hint.v4.f32 {%0, %1, %2, %3}, [%4], %5;"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "l"(p), "l"(policy));
+  return v;
+}
 
-  // Radix select of the k-th largest key, 8 bits per pass from the top.
-  // krem is the rank of the target among the keys that share `prefix`.
-  uint32_t prefix = 0;
-  int krem = k;
-  for (int shift = 24; shift >= 0; shift -= 8) {
-    for (int b = tid; b < kBins; b += kThreads) hist[b] = 0;
-    __syncthreads();
-    const uint32_t hi_mask = shift == 24 ? 0u : (kFullMask << (shift + 8));
-    for (int base = 0; base < S; base += kThreads) {
-      const int i = base + tid;
-      bool match = false;
-      uint32_t digit = kBins;
-      if (i < S) {
-        const uint32_t key = order_key(shifted(i));
-        match = (key & hi_mask) == prefix;
-        digit = (key >> shift) & 0xffu;
-      }
-      // one shared-memory atomic per distinct digit in the warp, so a
-      // constant row does not serialise 32 atomics on one bin
-      const unsigned peers = __match_any_sync(kFullMask, match ? digit : kBins);
-      if (match && lane == __ffs(peers) - 1) atomicAdd(&hist[digit], __popc(peers));
-    }
-    __syncthreads();
-    if (tid < 32) {
-      // lane l owns bins 255-8l down to 248-8l; a warp scan from the top
-      // finds the bin where the running count reaches krem
-      int cnt[8];
-      int sum = 0;
+// Calls f(v, valid) with the S values of row xr, the lanes of the warp in
+// step (so f may use warp votes): 16-byte loads of the aligned middle, two
+// in flight a lane (more measured slower: registers), the few values before
+// and after it one by one.
+template <bool kLast, typename F>
+__device__ __forceinline__ void warp_row(const float* xr, int S, F f) {
+  constexpr int kUnroll = 2;
+  const int lane = threadIdx.x & 31;
+  const int head = min(S, static_cast<int>(((16 - (reinterpret_cast<uintptr_t>(xr) & 15)) & 15) >> 2));
+  f(lane < head ? xr[lane] : 0.0f, lane < head);
+  const int n4 = (S - head) >> 2;
+  const float4* x4 = reinterpret_cast<const float4*>(xr + head);
+  for (int c0 = 0; c0 < n4; c0 += 32 * kUnroll) {
+    float4 v[kUnroll];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        cnt[j] = static_cast<int>(hist[kBins - 1 - 8 * lane - j]);
-        sum += cnt[j];
-      }
-      int incl = sum;
+    for (int u = 0; u < kUnroll; ++u) {
+      const int c = c0 + 32 * u + lane;
+      if (c < n4) v[u] = load4<kLast>(x4 + c);
+    }
 #pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int n = __shfl_up_sync(kFullMask, incl, o);
-        if (lane >= o) incl += n;
-      }
-      const int excl = incl - sum;
-      if (excl < krem && krem <= incl) {  // exactly one lane
-        int above = excl;
-        int j = 0;
-        while (above + cnt[j] < krem) above += cnt[j++];
-        s_prefix = prefix | (static_cast<uint32_t>(kBins - 1 - 8 * lane - j) << shift);
-        s_krem = krem - above;
+    for (int u = 0; u < kUnroll; ++u) {
+      if (c0 + 32 * u < n4) {  // warp-uniform
+        const bool valid = c0 + 32 * u + lane < n4;
+        f(v[u].x, valid);
+        f(v[u].y, valid);
+        f(v[u].z, valid);
+        f(v[u].w, valid);
       }
     }
-    __syncthreads();
-    prefix = s_prefix;
-    krem = s_krem;
   }
-  const uint32_t kth_key = prefix;
-  const float kth = key_value(kth_key);
-  const int n_gt = k - krem;  // elements strictly above the k-th value
+  const int tail = head + 4 * n4;
+  f(tail + lane < S ? xr[tail + lane] : 0.0f, tail + lane < S);
+}
 
-  // Compact the elements strictly above the k-th value, then fill the
-  // remaining top-k slots with its exact bit pattern (the tie copies).
-  if (tid == 0) s_count = 0;
-  __syncthreads();
-  for (int base = 0; base < S; base += kThreads) {
-    const int i = base + tid;
-    float v = 0.0f;
-    bool take = false;
-    if (i < S) {
-      v = shifted(i);
-      take = order_key(v) > kth_key;
-    }
-    const unsigned ballot = __ballot_sync(kFullMask, take);
-    int off = 0;
-    if (lane == 0 && ballot) off = atomicAdd(&s_count, __popc(ballot));
-    off = __shfl_sync(kFullMask, off, 0);
-    if (take) cand[off + __popc(ballot & ((1u << lane) - 1u))] = v;
-  }
-  for (int j = n_gt + tid; j < P; j += kThreads) cand[j] = j < k ? kth : -CUDART_INF_F;
-  __syncthreads();
+// Appends key where take holds, the lanes in step: slots base + rank among
+// the taking lanes (dropped past cap, which a consistent count never
+// reaches).  Returns how many lanes took.
+__device__ __forceinline__ int warp_append(uint32_t* buf, int base, int cap, bool take,
+                                           uint32_t key) {
+  const unsigned ballot = __ballot_sync(kFullMask, take);
+  const int slot = base + __popc(ballot & ((1u << (threadIdx.x & 31)) - 1u));
+  if (take && slot < cap) buf[slot] = key;
+  return __popc(ballot);
+}
 
-  // Bitonic sort of the P slots, descending.
-  for (int size = 2; size <= P; size <<= 1) {
+// Bitonic sort of 32 * kVPL keys, descending, held by one warp: slot
+// j * 32 + lane in v[j], so that loads, stores and the output row are
+// coalesced.  Strides below 32 exchange by shuffles, wider ones within a
+// thread.
+template <int kVPL>
+__device__ __forceinline__ void warp_sort_desc(uint32_t (&v)[kVPL]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int size = 2; size <= 32 * kVPL; size <<= 1) {
+#pragma unroll
     for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = tid; t < (P >> 1); t += kThreads) {
-        const int i = 2 * t - (t & (stride - 1));
-        const int j = i + stride;
-        const float a = cand[i];
-        const float b = cand[j];
-        const bool desc = (i & size) == 0;
-        if ((a < b) == desc) {
-          cand[i] = b;
-          cand[j] = a;
+      if (stride >= 32) {
+        const int js = stride >> 5;
+#pragma unroll
+        for (int j = 0; j < kVPL; ++j) {
+          if ((j & js) == 0) {
+            const bool desc = ((j * 32) & size) == 0;
+            const uint32_t hi = max(v[j], v[j | js]);
+            const uint32_t lo = min(v[j], v[j | js]);
+            v[j] = desc ? hi : lo;
+            v[j | js] = desc ? lo : hi;
+          }
+        }
+      } else {
+        const bool lower = (lane & stride) == 0;
+#pragma unroll
+        for (int j = 0; j < kVPL; ++j) {
+          const uint32_t w = __shfl_xor_sync(kFullMask, v[j], stride);
+          const bool desc = ((j * 32 + lane) & size) == 0;
+          v[j] = (lower == desc) ? max(v[j], w) : min(v[j], w);
         }
       }
-      __syncthreads();
-    }
-  }
-  float* vr = vals + r * static_cast<size_t>(k);
-  for (int j = tid; j < k; j += kThreads) vr[j] = cand[j];
-
-  if (kFused) {
-    // vals[k-1] is the k-th value itself; NaN propagates as in torch.maximum
-    const float xcut = kth != kth ? kth : fmaxf(kth, kCutoffFloor);
-    float s_nt = 0.0f;
-    float s_ll = 0.0f;
-    for (int i = tid; i < S; i += kThreads) {
-      const float v = row[i];
-      const float xs = v - C;
-      if (xs <= xcut) s_nt += expf(xs - xcut);
-      if (v != -CUDART_INF_F) s_ll += expf(mn - v);
-    }
-    s_nt = block_reduce(s_nt, AddOp(), scratch);
-    s_ll = block_reduce(s_ll, AddOp(), scratch);
-    if (tid == 0) {
-      c_out[r] = C;
-      ntl_out[r] = xcut + logf(s_nt);
-      ll_out[r] = -mn + logf(s_ll);
     }
   }
 }
 
+// exp(z) from the special-function unit: about 2 ulp plus |z| * 6e-8
+// relative, subnormal results flushed to 0.  For the two row sums: each has a
+// term near 1 (the row minimum's; the largest key below the bin's) that the
+// terms near z = 0 dominate, so neither the error nor the flush shows.
+__device__ __forceinline__ float fast_exp(float z) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(z * 1.4426950408889634f));
+  return y;
+}
+
+// kVPL: sort slots per lane (P = 32 * kVPL).  Past 8, the registers they
+// take allow 4 blocks a SM (as many as the shared memory of P > 256 allows).
+template <bool kFused, int kVPL>
+__global__ void __launch_bounds__(kThreads, kVPL > 8 ? 4 : 6)
+loo_prepass_kernel(const float* __restrict__ x, int B, int S, int ld, int k, int P,
+                   float* __restrict__ vals, float* __restrict__ c_out,
+                   float* __restrict__ ntl_out, float* __restrict__ ll_out,
+                   unsigned int* __restrict__ overflow) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int cap = cand_cap(P);
+  uint32_t* hist = smem + warp * (cap + kBins2 / 2 + P);
+  uint32_t* cand = hist;                // after the first scan: the candidates,
+  uint32_t* hist2 = hist + cap;         // and the second histogram
+  uint32_t* win = hist2 + kBins2 / 2;   // P slots: the top k, then 0 padding
+
+  for (int r = blockIdx.x * kWarps + warp; r < B; r += gridDim.x * kWarps) {
+    const float* xr = x + static_cast<size_t>(r) * ld;
+    uint4* h4 = reinterpret_cast<uint4*>(hist);  // the last row's candidates
+    for (int i = lane; i < kBins1 / 8; i += 32) h4[i] = make_uint4(0u, 0u, 0u, 0u);
+    __syncwarp();
+
+    // 1. the row from device memory: max, min and the first digit
+    float mx = -CUDART_INF_F;
+    float mn = CUDART_INF_F;
+    warp_row<false>(xr, S, [&](float v, bool valid) {
+      if (!valid) return;
+      if constexpr (kFused) {
+        mx = fmaxf(mx, v);
+        if (v != -CUDART_INF_F) mn = fminf(mn, v);
+      }
+      hist_add<kBins1>(hist, order_key(v) >> 20);
+    });
+    // cut 1: load
+    __syncwarp();
+    float C = 0.0f;
+    if constexpr (kFused) {
+      C = warp_max(mx);
+      mn = warp_min(mn);
+    }
+
+    // 2. the bin of the k-th key
+    const Found first = warp_find<kBins1>(hist, k);
+    const uint32_t bin1 = static_cast<uint32_t>(first.bin);
+    const int n_above = k - first.rank;  // keys in higher bins
+    const bool spill = n_above + first.count > cap;
+    const int n_c = spill ? n_above : n_above + first.count;  // candidates kept
+    __syncwarp();
+
+    // 3. the row again, from the cache: the candidates, the keys in and above
+    // the bin (only those above it when they do not fit).  Kernel A also sums
+    // the lppd term exp(min - x) and, for the non-tail mass, exp(x - C - ref)
+    // over the keys below the bin: each is below the k-th value, so below the
+    // cutoff, and ref (the bin's lower edge, shifted) keeps each term <= 1
+    // until the cutoff is known.
+    const float ref = kFused ? fmaxf(key_value(bin1 << 20) - C, -FLT_MAX) : 0.0f;
+    int n_kept = 0;
+    float s_ll = 0.0f;
+    float s_lo = 0.0f;
+    warp_row<true>(xr, S, [&](float v, bool valid) {
+      const uint32_t key = order_key(v);
+      const uint32_t d = key >> 20;
+      n_kept += warp_append(cand, n_kept, cap, valid && (d > bin1 || (d == bin1 && !spill)), key);
+      if constexpr (kFused) {
+        if (valid && v != -CUDART_INF_F) {
+          s_ll += fast_exp(mn - v);
+          if (d < bin1) s_lo += fast_exp((v - C) - ref);
+        }
+      }
+    });
+    __syncwarp();
+    // cut 2: radix select
+
+    // 4. the exact k-th key: two 10-bit digits over the candidates in the bin
+    // (over the row's keys in the bin, when they did not fit)
+    const int n_src = spill ? S : n_c;
+    auto src_key = [&](int i) { return spill ? order_key(xr[i]) : cand[i]; };
+    uint32_t prefix = bin1 << 20;
+    int krem = first.rank;
+#pragma unroll 1
+    for (int shift = 10; shift >= 0; shift -= 10) {
+      for (int i = lane; i < kBins2 / 2; i += 32) hist2[i] = 0;
+      __syncwarp();
+      const uint32_t mask = kFullMask << (shift + 10);
+      for (int i = lane; i < n_src; i += 32) {
+        const uint32_t key = src_key(i);
+        if ((key & mask) == prefix) hist_add<kBins2>(hist2, (key >> shift) & (kBins2 - 1));
+      }
+      __syncwarp();
+      const Found f = warp_find<kBins2>(hist2, krem);
+      prefix |= static_cast<uint32_t>(f.bin) << shift;
+      krem = f.rank;
+      __syncwarp();
+    }
+    const uint32_t kth_key = prefix;
+    const int n_gt = k - krem;  // keys strictly above the k-th
+
+    // the winners: candidates above the k-th key (and a spilled row's keys in
+    // the bin above it); its copies fill up
+    int pos = 0;
+    for (int base = 0; base < n_c; base += 32) {
+      const int i = base + lane;
+      const uint32_t key = i < n_c ? cand[i] : 0u;
+      pos += warp_append(win, pos, P, i < n_c && key > kth_key, key);
+    }
+    if (spill) {
+      for (int base = 0; base < S; base += 32) {
+        const int i = base + lane;
+        const uint32_t key = i < S ? order_key(xr[i]) : 0u;
+        pos += warp_append(win, pos, P, i < S && (key >> 20) == bin1 && key > kth_key, key);
+      }
+      if (lane == 0 && overflow != nullptr) atomicAdd(overflow, 1u);
+    }
+    for (int j = n_gt + lane; j < P; j += 32) win[j] = j < k ? kth_key : 0u;
+    __syncwarp();
+    // cut 3: compaction
+
+    // kernel A: the non-tail mass of the keys in and above the bin
+    float xcut = 0.0f;
+    float s_hi = 0.0f;
+    if constexpr (kFused) {
+      // vals[k-1] is the k-th value itself; NaN propagates as in torch.maximum
+      const float kth = key_value(kth_key) - C;
+      xcut = kth != kth ? kth : fmaxf(kth, kCutoffFloor);
+      for (int i = lane; i < n_c; i += 32) {
+        const float xs = key_value(cand[i]) - C;
+        if (xs <= xcut) s_hi += expf(xs - xcut);
+      }
+      if (spill) {
+        for (int i = lane; i < S; i += 32) {
+          const uint32_t key = order_key(xr[i]);
+          const float xs = key_value(key) - C;
+          if ((key >> 20) == bin1 && xs <= xcut) s_hi += expf(xs - xcut);
+        }
+      }
+      __syncwarp();
+    }
+
+    // 5. sort and write the top k
+    {
+      uint32_t v[kVPL];
+#pragma unroll
+      for (int j = 0; j < kVPL; ++j) v[j] = win[j * 32 + lane];
+      warp_sort_desc(v);
+      float* vr = vals + static_cast<size_t>(r) * k;
+#pragma unroll
+      for (int j = 0; j < kVPL; ++j) {
+        if (j * 32 + lane < k) vr[j * 32 + lane] = kFused ? key_value(v[j]) - C : key_value(v[j]);
+      }
+    }
+    // cut 4: sort
+
+    // 6. the scalar outputs
+    if constexpr (kFused) {
+      s_hi = warp_sum(s_hi);
+      s_ll = warp_sum(s_ll);
+      s_lo = warp_sum(s_lo);
+      if (lane == 0) {
+        const float nt = s_hi + (s_lo > 0.0f ? s_lo * expf(ref - xcut) : 0.0f);
+        c_out[r] = C;
+        ntl_out[r] = xcut + logf(nt);
+        ll_out[r] = -mn + logf(s_ll);
+      }
+    }
+    __syncwarp();
+  }
+}
+
+using KernelFn = void (*)(const float*, int, int, int, int, int, float*, float*, float*,
+                          float*, unsigned int*);
+
+int sort_slots(int k) {
+  int P = 32;
+  while (P < k) P <<= 1;
+  return P;
+}
+
 template <bool kFused>
-int launch(int device, const void* x, int B, int S, int ld, int k, void* vals,
-           void* c_out, void* ntl_out, void* ll_out, void* stream) {
+KernelFn kernel_for(int P) {
+  switch (P) {
+    case 32: return loo_prepass_kernel<kFused, 1>;
+    case 64: return loo_prepass_kernel<kFused, 2>;
+    case 128: return loo_prepass_kernel<kFused, 4>;
+    case 256: return loo_prepass_kernel<kFused, 8>;
+    case 512: return loo_prepass_kernel<kFused, 16>;
+    default: return loo_prepass_kernel<kFused, 32>;
+  }
+}
+
+size_t smem_bytes(int P) {
+  return sizeof(uint32_t) * kWarps * static_cast<size_t>(cand_cap(P) + kBins2 / 2 + P);
+}
+
+// Resident blocks a SM for this shape (after raising the shared-memory cap).
+cudaError_t blocks_per_sm(KernelFn kern, size_t smem, int* n) {
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(n, kern, kThreads, smem);
+}
+
+template <bool kFused>
+int launch(int device, const void* x, int B, int S, int ld, int k, void* vals, void* c_out,
+           void* ntl_out, void* ll_out, void* overflow, void* stream) {
   if (B < 1 || S < 1 || S > kMaxS || ld < S || k < 1 || k > kMaxK || k > S) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int P = 1;
-  while (P < k) P <<= 1;
-  const int smem = (S + P) * static_cast<int>(sizeof(float));
-  err = cudaFuncSetAttribute(loo_prepass_kernel<kFused>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int P = sort_slots(k);
+  const KernelFn kern = kernel_for<kFused>(P);
+  const size_t smem = smem_bytes(P);
+  int per_sm = 0;
+  int sms = 0;
+  err = blocks_per_sm(kern, smem, &per_sm);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  loo_prepass_kernel<kFused><<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), S, ld, k, P, static_cast<float*>(vals),
-      static_cast<float*>(c_out), static_cast<float*>(ntl_out),
-      static_cast<float*>(ll_out));
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int blocks = (B + kWarps - 1) / kWarps;
+  const int grid = blocks < per_sm * sms ? blocks : per_sm * sms;
+  kern<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), B, S, ld, k, P, static_cast<float*>(vals),
+      static_cast<float*>(c_out), static_cast<float*>(ntl_out), static_cast<float*>(ll_out),
+      static_cast<unsigned int*>(overflow));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -286,17 +547,33 @@ int launch(int device, const void* x, int B, int S, int ld, int k, void* vals,
 extern "C" {
 
 // Kernel A.  x: B rows of S floats, row stride ld (elements).  Outputs:
-// vals (B, k) contiguous; c, log_ntl, log_sum_ll (B,).
+// vals (B, k) contiguous; c, log_ntl, log_sum_ll (B,).  overflow: null, or
+// one device uint32 that counts the rows whose ties overflowed the buffer.
 int pyloo_loo_prepass_f32(int device, const void* x, int B, int S, int ld, int k,
                           void* vals, void* c, void* log_ntl, void* log_sum_ll,
-                          void* stream) {
-  return launch<true>(device, x, B, S, ld, k, vals, c, log_ntl, log_sum_ll, stream);
+                          void* overflow, void* stream) {
+  return launch<true>(device, x, B, S, ld, k, vals, c, log_ntl, log_sum_ll, overflow, stream);
 }
 
 // Kernel B.  Same input contract; output vals (B, k) contiguous.
 int pyloo_topk_desc_f32(int device, const void* x, int B, int S, int ld, int k,
-                        void* vals, void* stream) {
-  return launch<false>(device, x, B, S, ld, k, vals, nullptr, nullptr, nullptr, stream);
+                        void* vals, void* overflow, void* stream) {
+  return launch<false>(device, x, B, S, ld, k, vals, nullptr, nullptr, nullptr, overflow,
+                       stream);
+}
+
+// Resident blocks a SM of kernel A (fused != 0) or B at this shape, or a
+// negative cudaError.
+int pyloo_prepass_blocks_per_sm(int device, int fused, int S, int k) {
+  if (S < 1 || S > kMaxS || k < 1 || k > kMaxK || k > S) {
+    return -static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  const int P = sort_slots(k);
+  int n = 0;
+  err = blocks_per_sm(fused ? kernel_for<true>(P) : kernel_for<false>(P), smem_bytes(P), &n);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
 const char* pyloo_error_string(int code) {

@@ -31,7 +31,13 @@ import torch
 from .lse import logsumexp
 from .psis import _gpdfit_batch, _gpdfit_from_y, _log1mexp, sislw_batch, tislw_batch
 from .selection import fast_path_route, topk_vals_desc
-from .topk import _CUTOFF_FLOOR, loo_prepass, loo_prepass_multi, multipass_parts
+from .topk import (
+    _CUTOFF_FLOOR,
+    loo_prepass,
+    loo_prepass_multi,
+    multipass_parts,
+    topk_desc_plain,
+)
 
 __all__ = [
     "loo_scores_psis",
@@ -238,9 +244,10 @@ def loo_scores_psis_fast(log_lik, tail_max: int, route: str | None = None):
     ``route`` defaults to :func:`~.selection.fast_path_route`: the fused
     prepass (kernel A, in one pass or split over the draws) on a CUDA
     float32 tensor, else plain torch selection and reductions.  Passing
-    ``"torch"`` runs the plain scorer on any device (the reference a run on
-    the card is checked against); passing ``"cuda"`` on a CPU tensor runs the
-    fused branch over the prepass's plain version.
+    ``"torch"`` runs the plain scorer on any device, through no kernel of
+    this package (the reference a run on the card is checked against);
+    passing ``"cuda"`` on a CPU tensor runs the fused branch over the
+    prepass's plain version.
     """
     x_raw = -log_lik
     S = x_raw.shape[1]
@@ -258,7 +265,7 @@ def loo_scores_psis_fast(log_lik, tail_max: int, route: str | None = None):
     elif route == "torch":
         C1 = x_raw.amax(dim=1)
         x = x_raw - C1[:, None]
-        vals = topk_vals_desc(x, k)
+        vals = topk_desc_plain(x, k)  # never kernel B: this is the reference
     else:
         raise ValueError(f"unknown route {route!r}")
 

@@ -7,7 +7,8 @@ for Hopper replace the TPU's Pallas kernels:
   in ``csrc/topk_prepass.cu``;
 * kernel B, :func:`topk_desc` with ``variant="roll"`` — ``_kernel_roll``, a
   radix select in the same source (one templated kernel with the reductions
-  switched on or off);
+  switched on or off), whose selection scheme :func:`topk_radix_plain`
+  follows step by step;
 * kernels C and D, :func:`topk_desc` with ``variant="reshape"`` and
   ``"natural"`` — ``_kernel`` and ``_kernel_natural``, bitonic sorting
   networks over 256-wide segments, in ``csrc/topk_bitonic.cu``.
@@ -38,6 +39,10 @@ __all__ = [
     "loo_prepass",
     "loo_prepass_plain",
     "loo_prepass_multi",
+    "candidate_cap",
+    "topk_radix_plain",
+    "overflow_rows",
+    "blocks_per_sm",
     "BITONIC_MAX_K",
     "TOPK_VARIANTS",
     "topk_desc",
@@ -61,6 +66,19 @@ BITONIC_MAX_K = _SEG
 TOPK_VARIANTS = ("roll", "reshape", "natural")
 # log(float64 tiny): the reference's tail-cutoff floor (pyloo psis.py:90)
 _CUTOFF_FLOOR = float(math.log(2.2250738585072014e-308))
+_OVERFLOW: dict = {}  # device -> uint32 count of rows whose candidates overflowed
+
+
+def candidate_cap(k: int) -> int:
+    """Slots of kernels A and B's candidate buffer for this k: the keys in
+    and above the k-th key's first-digit bin go there, and a row with more
+    finishes its selection over the whole row.  Must equal ``cand_cap`` in
+    csrc/topk_prepass.cu (1536, and P / 2 more slots when the sort takes
+    P > 256, P the power of two >= max(k, 32))."""
+    p = 32
+    while p < k:
+        p *= 2
+    return 1536 + (p // 2 if p > 256 else 0)
 
 
 def supports(s: int, k: int) -> bool:
@@ -111,6 +129,41 @@ def _launch_args(x: torch.Tensor):
         raise ValueError(f"row stride {ld} is shorter than the row ({x.shape[1]})")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     return x.device.index, ld, stream
+
+
+def _cuda_device(device) -> torch.device:
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    return device
+
+
+def _overflow_counter(device) -> torch.Tensor:
+    device = _cuda_device(device)
+    if device not in _OVERFLOW:
+        _OVERFLOW[device] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _OVERFLOW[device]
+
+
+def overflow_rows(device="cuda", reset: bool = False) -> int:
+    """Rows that kernels A and B finished over the whole row because more
+    than :func:`candidate_cap` keys lay in or above the k-th key's bin, counted on
+    ``device`` since the last reset.  Reads the device counter (a
+    synchronisation); ``reset`` sets it to 0 afterwards."""
+    counter = _overflow_counter(device)
+    n = int(counter.item())
+    if reset:
+        counter.zero_()
+    return n
+
+
+def blocks_per_sm(s: int, k: int, fused: bool = True, device="cuda") -> int:
+    """Resident blocks a SM of kernel A (``fused``) or B at rows of S, k."""
+    lib = _build.load()
+    n = lib.pyloo_prepass_blocks_per_sm(_cuda_device(device).index, int(fused), s, k)
+    if n < 0:
+        _raise_on(-n, lib, "occupancy query of the prepass")
+    return n
 
 
 def _raise_on(code: int, lib, what: str) -> None:
@@ -167,7 +220,8 @@ def loo_prepass(x: torch.Tensor, k: int):
     lib = _build.load()
     code = lib.pyloo_loo_prepass_f32(
         device, x.data_ptr(), b, x.shape[1], ld, k, vals.data_ptr(),
-        c.data_ptr(), log_ntl.data_ptr(), log_sum_ll.data_ptr(), stream,
+        c.data_ptr(), log_ntl.data_ptr(), log_sum_ll.data_ptr(),
+        _overflow_counter(x.device).data_ptr(), stream,
     )
     _raise_on(code, lib, "loo_prepass")
     loo_prepass.launches += 1
@@ -241,6 +295,91 @@ def loo_prepass_multi(x: torch.Tensor, k: int, parts: int):
 def topk_desc_plain(x: torch.Tensor, k: int) -> torch.Tensor:
     """Plain version of kernel B: the exact top-k values per row, descending."""
     return torch.topk(x, k, dim=1, sorted=True).values
+
+
+def _order_key(x: torch.Tensor) -> torch.Tensor:
+    """The kernels' order-preserving uint32 key of float32 values, as int64."""
+    u = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return torch.where(u >= 2**31, 0xFFFFFFFF - u, u | 2**31)
+
+
+def _key_value(key: torch.Tensor) -> torch.Tensor:
+    u = torch.where(key >= 2**31, key & 0x7FFFFFFF, 0xFFFFFFFF - key)
+    return torch.where(u >= 2**31, u - 2**32, u).to(torch.int32).view(torch.float32)
+
+
+def _find_bin(counts: torch.Tensor, rank: torch.Tensor):
+    """Per row of a ``(B, bins)`` histogram: the bin, counted from the top,
+    that holds the rank-th largest key; the rank within it; its count."""
+    from_top = counts.flip(1).cumsum(1)
+    # clamped: a spilled row's candidate buffer may hold fewer keys than its
+    # rank, and what this returns for it is not used
+    j = (from_top < rank[:, None]).sum(1, keepdim=True).clamp_max(counts.shape[1] - 1)
+    bins = counts.shape[1] - 1 - j
+    in_bin = counts.gather(1, bins)
+    above = from_top.gather(1, j) - in_bin
+    return bins[:, 0], rank - above[:, 0], in_bin[:, 0]
+
+
+def _refine(src: torch.Tensor, member: torch.Tensor, prefix: torch.Tensor, krem: torch.Tensor):
+    """The last two 10-bit digits of the k-th key over the keys ``src`` where
+    ``member`` holds and the first digit is the k-th key's: the exact k-th key
+    and how many copies of it belong."""
+    for shift in (10, 0):
+        mask = (0xFFFFFFFF << (shift + 10)) & 0xFFFFFFFF
+        m = member & ((src & mask) == prefix[:, None])
+        digit = torch.where(m, (src >> shift) & 1023, 0)
+        hist = torch.zeros(src.shape[0], 1024, dtype=torch.int64, device=src.device)
+        hist.scatter_add_(1, digit, m.to(torch.int64))
+        b, krem, _ = _find_bin(hist, krem)
+        prefix = prefix | (b << shift)
+    return prefix, krem
+
+
+def topk_radix_plain(x: torch.Tensor, k: int):
+    """Kernel B's selection, step by step, in tensor ops: ``(vals, spilled)``.
+
+    1. a histogram of the first digit, the top 12 bits of each key;
+    2. the bin of the k-th key;
+    3. the candidates, the keys in and above that bin, go to a buffer of
+       :func:`candidate_cap` slots; when there are more (``spilled`` rows)
+       only the keys above the bin do;
+    4. two 10-bit digits over the buffer's keys in the bin, or over the whole
+       row's when it spilled, give the exact k-th key;
+    5. the keys above it are the winners, the k-th key fills the remaining
+       slots, and the winners are sorted descending.
+
+    ``vals`` equals ``torch.topk(x, k).values`` value for value (the keys
+    order -0.0 below +0.0; the two compare equal, so which zero fills a
+    tied slot may differ).  Kernel A selects the same way on the raw row and
+    returns ``vals - C``.
+    """
+    b = x.shape[0]
+    key = _order_key(x)
+    d1 = key >> 20
+    hist = torch.zeros(b, 4096, dtype=torch.int64, device=x.device)
+    hist.scatter_add_(1, d1, torch.ones_like(d1))
+    rank = torch.full((b,), k, dtype=torch.int64, device=x.device)
+    bin1, krem, n_tie = _find_bin(hist, rank)
+    n_above = k - krem
+    cap = candidate_cap(k)
+    spilled = n_above + n_tie > cap
+    is_cand = d1 >= bin1[:, None]
+
+    # the candidate buffer: the keys in and above the bin, moved to the front
+    order = torch.argsort((~is_cand).to(torch.int8), dim=1, stable=True)[:, :cap]
+    buf = key.gather(1, order)
+    in_buf = torch.arange(buf.shape[1], device=x.device)[None, :] < (n_above + n_tie)[:, None]
+    prefix = bin1 << 20
+    kth_buf, krem_buf = _refine(buf, in_buf, prefix, krem)
+    kth_row, krem_row = _refine(key, torch.ones_like(is_cand), prefix, krem)
+    kth = torch.where(spilled, kth_row, kth_buf)
+    krem = torch.where(spilled, krem_row, krem_buf)
+
+    top = torch.sort(torch.where(key > kth[:, None], key, -1), dim=1, descending=True).values[:, :k]
+    n_gt = k - krem
+    top = torch.where(torch.arange(k, device=x.device)[None, :] < n_gt[:, None], top, kth[:, None])
+    return _key_value(top), spilled
 
 
 def _sorted_segments(x: torch.Tensor, natural: bool) -> torch.Tensor:
@@ -324,8 +463,9 @@ def _topk_launch(variant: str, x: torch.Tensor, k: int, prepared) -> None:
     """Launch one top-k kernel on prepared arguments (counts nothing)."""
     device, ld, stream, vals = prepared
     lib = _build.load()
+    counter = [_overflow_counter(x.device).data_ptr()] if variant == "roll" else []
     code = getattr(lib, _TOPK_ENTRY[variant])(
-        device, x.data_ptr(), x.shape[0], x.shape[1], ld, k, vals.data_ptr(), stream
+        device, x.data_ptr(), x.shape[0], x.shape[1], ld, k, vals.data_ptr(), *counter, stream
     )
     _raise_on(code, lib, f"topk_desc({variant})")
 

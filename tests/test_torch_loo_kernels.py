@@ -95,6 +95,25 @@ def test_loo_scores_psis_fast_default_route_on_cpu():
     assert topk.loo_prepass.launches == before
 
 
+def test_plain_route_reaches_no_kernel_wrapper(monkeypatch):
+    # route="torch" is the reference a run on the card is checked against:
+    # it must not reach kernel A or B (whose wrappers, on the card, launch)
+    from pyloo_tpu_torch.ops import selection
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain scorer reached a kernel wrapper")
+
+    for module in (tk, topk, selection):
+        for name in ("loo_prepass", "loo_prepass_multi", "topk_desc"):
+            if hasattr(module, name):
+                monkeypatch.setattr(module, name, refuse)
+    ll = _log_lik(deep=False, b=8, seed=4).astype(np.float32)
+    got = tk.loo_scores_psis_fast(torch.from_numpy(ll), M, route="torch")
+    want = jk.loo_scores_psis_fast(jnp.asarray(ll), M)
+    assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(got[3].numpy(), np.asarray(want[3]))
+
+
 @pytest.mark.parametrize("fn", ["loo_scores_sis", "loo_scores_tis", "mixture_scores"])
 def test_sis_tis_mixture(fn):
     ll = _log_lik(deep=False, b=12, seed=2)

@@ -14,6 +14,8 @@ on both sides and selection is exact); log_ntl and log_sum_ll within rtol
 ``tests/test_selection.py``.
 """
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -170,3 +172,85 @@ def test_topk_vals_desc_routes():
         topk_vals_desc(x32, 191).numpy(), topk.topk_desc_plain(x32, 191).numpy()
     )
     assert topk.topk_desc.launches == before  # the CPU never launches a kernel
+
+
+def _special_rows(s=2500, seed=11):
+    """x rows for kernels A and B's selection scheme: a full-row tie; keys
+    that all share their top 12 bits (the k-th bin overflows the tie
+    buffer); +0.0 and -0.0 mixed; denormals; some -inf; a heavy tail."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(1.0, 0.8, size=(8, s)).astype(np.float32)
+    x[1] = 0.25
+    x[2] = (1.0 + rng.integers(0, 2**20, size=s) * 2.0**-23).astype(np.float32)
+    x[3] = np.where(rng.random(s) < 0.5, np.float32(0.0), np.float32(-0.0))
+    x[3, ::5] = rng.normal(size=x[3, ::5].shape)
+    x[4] = (rng.normal(size=s) * 1e-39).astype(np.float32)
+    x[5, ::7] = -np.inf
+    x[6] = 2.0 * rng.standard_t(3, size=s) + 1.0
+    return x
+
+
+@pytest.mark.parametrize("k", [1, 191, 545, "S"])
+def test_radix_plain_on_special_rows(k):
+    s = 1024 if k == "S" else 3000
+    k = s if k == "S" else k
+    x = _special_rows(s)
+    xt = torch.from_numpy(x)
+    vals, spilled = topk.topk_radix_plain(xt, k)
+    np.testing.assert_array_equal(vals.numpy(), torch.topk(xt, k).values.numpy())
+    np.testing.assert_array_equal(vals.numpy(), np.asarray(jax.lax.top_k(jnp.asarray(x), k)[0]))
+    # the tie row and the shared-top-bits row finish over the whole row when
+    # it is wider than the candidate buffer
+    assert spilled[1] == spilled[2] == (s > topk.candidate_cap(k))
+    assert not spilled[7]
+    # kernel A selects on the raw row and shifts the winners
+    c = xt.amax(dim=1)
+    shifted = vals - c[:, None]
+    np.testing.assert_array_equal(shifted.numpy(), topk.loo_prepass_plain(xt, k)[0].numpy())
+    # XLA on the CPU flushes float32 denormals to zero in x - C: row 4 is
+    # held to torch (above) only
+    normal = np.arange(8) != 4
+    np.testing.assert_array_equal(shifted.numpy()[normal], np.asarray(_jax_oracle(x, k)[0])[normal])
+
+
+def test_radix_plain_matches_pallas_interpret():
+    x = _special_rows()
+    xt = torch.from_numpy(x)
+    vals, _ = topk.topk_radix_plain(xt, 191)
+    normal = np.arange(8) != 4  # XLA flushes denormals to zero (see above)
+    want_b = pallas_topk_desc(jnp.asarray(x[normal]), 191, interpret=True, blk=1)
+    np.testing.assert_array_equal(vals.numpy()[normal], np.asarray(want_b))
+    want_a = pallas_loo_prepass(jnp.asarray(x[normal]), 191, interpret=True, blk=1)
+    shifted = vals - xt.amax(dim=1)[:, None]
+    np.testing.assert_array_equal(shifted.numpy()[normal], np.asarray(want_a[0]))
+    _assert_prepass(topk.loo_prepass(xt[normal], 191), want_a)
+
+
+@pytest.mark.parametrize("k", [200, 400])  # sort slots P = 256 and P = 512
+def test_radix_plain_candidate_buffer_edge(k):
+    # exactly candidate_cap(k) keys in and above the k-th key's bin fit; one
+    # more spills; the result is the same either way
+    cap = topk.candidate_cap(k)
+    s = cap + 500
+    x = np.full((2, s), 0.1, np.float32)
+    x[:, :150] = 3.0  # above the bin
+    rng = np.random.default_rng(2)
+    x[:, 150:cap] = 1.0 + rng.integers(0, 2**20, size=(2, cap - 150)) * 2.0**-23
+    x[1, cap] = 1.0  # one more key in the bin
+    xt = torch.from_numpy(x)
+    vals, spilled = topk.topk_radix_plain(xt, k)
+    assert spilled.tolist() == [False, True]
+    np.testing.assert_array_equal(vals.numpy(), torch.topk(xt, k).values.numpy())
+
+
+def test_candidate_cap_matches_the_kernel_source():
+    from pathlib import Path
+
+    import pyloo_tpu_torch
+
+    src = (Path(pyloo_tpu_torch.__file__).parent / "csrc" / "topk_prepass.cu").read_text()
+    bins1 = int(re.search(r"constexpr int kBins1 = (\d+);", src).group(1))
+    bins2 = int(re.search(r"constexpr int kBins2 = (\d+);", src).group(1))
+    assert "return kBins1 / 2 - kBins2 / 2 + (P > 256 ? P / 2 : 0);" in src
+    for k, p in [(1, 32), (191, 256), (256, 256), (257, 512), (545, 1024), (1024, 1024)]:
+        assert topk.candidate_cap(k) == bins1 // 2 - bins2 // 2 + (p // 2 if p > 256 else 0)
