@@ -10,9 +10,10 @@ Phases:
    ``nvcc`` per source, started together);
 1. kernels A and B against their plain PyTorch versions at the shapes the
    main paths give them (131,072 x 4,000; 16,384 x 16,000; 4,096 x 32,768;
-   one part and the merge of phase 2b's 80,000 draws), with their times,
-   blocks per SM and the rows whose candidates overflowed the kernels' buffer,
-   counted against the plain version of the kernels' selection scheme;
+   one part and the merge of phase 2b's 80,000 draws) and on concentrated
+   rows (x = 0.7 + 0.01 z at 131,072 x 4,000), with their times, blocks per
+   SM and the rows whose first radix digit overflowed the kernels' candidate
+   buffer, counted against the plain version of the kernels' selection scheme;
 1b. kernels C and D (``topk_desc(variant="reshape"|"natural")``) against
    their plain versions and ``torch.topk``, with their times; then the
    profiling harness (kernel E) over the three top-k variants at
@@ -175,14 +176,15 @@ def hold_topk(kern: dict, x, k: int, what: str) -> None:
     check(torch.equal(got, want), f"kernel B {what} k={k}: bitwise to torch.topk")
 
 
-def time_kernel(kern: dict, name: str, fn, plain, x, k: int, bound, library) -> dict:
+def time_kernel(kern: dict, name: str, fn, plain, x, k: int, bound, library,
+                data: str = "smoke rows") -> dict:
     """Times of a kernel, its plain version (before and after) and the
     library call at one shape, with the kernel's blocks per SM; printed and
     added to ``kern["by_shape"]``."""
     from pyloo_tpu_torch.ops import topk
 
     rows, s = x.shape
-    row = {"shape": [rows, s, k], "plain_ms": median_ms(lambda: plain(x, k)),
+    row = {"shape": [rows, s, k], "data": data, "plain_ms": median_ms(lambda: plain(x, k)),
            "ms": median_ms(lambda: fn(x, k))}
     row["plain_ms_after"] = median_ms(lambda: plain(x, k))
     row["bound_ms"], row["bound_by"] = bound
@@ -190,7 +192,7 @@ def time_kernel(kern: dict, name: str, fn, plain, x, k: int, bound, library) -> 
     row["blocks_per_sm"] = topk.blocks_per_sm(s, k, fused=name == "loo_prepass")
     kern["by_shape"].append(row)
     lib = f", torch.topk {row['library_ms']:.3f} ms" if library else ""
-    print(f"  time  {name} ({rows}, {s}) k={k}: kernel {row['ms']:.3f} ms"
+    print(f"  time  {name} ({rows}, {s}) k={k}, {data}: kernel {row['ms']:.3f} ms"
           f" ({100 * row['bound_ms'] / row['ms']:.0f}% of the {row['bound_ms']:.3f} ms bound),"
           f" plain {row['plain_ms']:.3f} / {row['plain_ms_after']:.3f} ms (before / after){lib};"
           f" {row['blocks_per_sm']} blocks per SM", flush=True)
@@ -204,8 +206,9 @@ def prepass_bound(rows: int, s: int, k: int):
 
 
 def hold_overflow(x, k: int, what: str) -> None:
-    """Rows whose candidates overflow the buffer: counted by kernels A and B
-    on the first 2,048 rows, against the plain version of their scheme."""
+    """Rows whose first digit overflows the candidate buffer: counted by
+    kernels A and B on the first 2,048 rows, against the plain version of
+    their scheme."""
     from pyloo_tpu_torch.ops import topk
 
     sub = x[:2_048]
@@ -236,8 +239,8 @@ def phase_kernels(kernels: dict, tail_length) -> None:
         hold_prepass(a, x, k, f"({rows}, {s})")
         hold_topk(b, x, k, f"({rows}, {s})")
         print(f"  rows  ({rows}, {s}): {topk.overflow_rows(reset=True)} rows overflowed the"
-              f" candidate buffer ({topk.candidate_cap(k)} keys) in kernels A and B together",
-              flush=True)
+              f" first digit (more than {topk.candidate_cap(k)} keys in and above the k-th"
+              f" key's bin) in kernels A and B together", flush=True)
         hold_overflow(x, k, f"({rows}, {s})")
         row_a = time_kernel(a, "loo_prepass", topk.loo_prepass, topk.loo_prepass_plain, x, k,
                             prepass_bound(rows, s, k), None)
@@ -249,6 +252,25 @@ def phase_kernels(kernels: dict, tail_length) -> None:
                             "library_ms"):
                     kern[key] = row[key]
         del x
+
+    # concentrated rows, x = 0.7 + 0.01 z: a posterior's spread of one
+    # observation's -log_lik, every row's draws within one first-digit bin
+    rows, s = 131_072, 4_000
+    k = tail_length(s) + 1
+    x = 0.7 + 0.01 * torch.randn(rows, s, device="cuda", generator=gen)
+    hold_prepass(a, x, k, f"concentrated ({rows}, {s})")
+    hold_topk(b, x, k, f"concentrated ({rows}, {s})")
+    topk.overflow_rows(reset=True)
+    topk.loo_prepass(x, k)
+    n = topk.overflow_rows(reset=True)
+    print(f"  rows  concentrated ({rows}, {s}): kernel A narrowed {n} rows ({100 * n / rows:.1f}%)"
+          f" by a further digit", flush=True)
+    hold_overflow(x, k, f"concentrated ({rows}, {s})")
+    time_kernel(a, "loo_prepass", topk.loo_prepass, topk.loo_prepass_plain, x, k,
+                prepass_bound(rows, s, k), None, "concentrated rows")
+    time_kernel(b, "topk_desc", topk.topk_desc, topk.topk_desc_plain, x, k,
+                topk_bound(rows, s, k), topk_values, "concentrated rows")
+    del x
 
     # phase 2b's shapes: kernel A on one part of an 80,000-draw row (a view
     # at an unaligned column offset), kernel B on the merge of the parts
@@ -428,10 +450,12 @@ def phase_main_path(pl, kernels: dict):
     pl.rcParams["device.precision"] = "float32"
 
     # the main path's run: every launch counter from 0, read right after
+    topk.overflow_rows(reset=True)
     zero_counts()
     timed: dict = {}
     res = run_loo(pl, idata, timed)
     got = read_counts()
+    n_over = topk.overflow_rows(reset=True)
     n_chunks = -(-n_obs // chunk_rows(chains * draws, 4))
     check(got["A"] == n_chunks and got["B"] == got["C"] == got["D"] == got["E"] == 0,
           f"kernel A launched {got['A']} times for {n_chunks} chunks; kernel B {got['B']}")
@@ -442,6 +466,8 @@ def phase_main_path(pl, kernels: dict):
     print(f"  time  loo() {timed['wall_s']:.3f} s wall, scoring {timed['scoring_s']:.3f} s,"
           f" {n_obs / timed['wall_s']:.0f} obs/s; peak device memory"
           f" {timed['peak_gb']:.2f} GB", flush=True)
+    print(f"  rows  kernel A narrowed {n_over} of {n_obs} rows ({100 * n_over / n_obs:.2f}%) by a"
+          f" further digit", flush=True)
 
     # beyond one block's 32,768 draws: kernel A per part, kernel B in the merge
     print("phase 2b: loo() float32 at 8,192 x 80,000 (multipass)", flush=True)
@@ -555,7 +581,7 @@ def phase_streaming(pl, ll_host, model, reff: float, res32, res64) -> None:
     import torch
 
     from pyloo_tpu_torch.ops.psis import tail_length
-    from pyloo_tpu_torch.ops.topk import _CUTOFF_FLOOR
+    from pyloo_tpu_torch.ops.topk import _CUTOFF_FLOOR, overflow_rows
     from pyloo_tpu_torch.streaming._chunks import resolve_chunk
 
     print("phase 5: loo_streaming float32 at 1,000,000 x 4,000, the model on the card",
@@ -571,6 +597,7 @@ def phase_streaming(pl, ll_host, model, reff: float, res32, res64) -> None:
 
     m_tail = tail_length(s, reff)
     chunk, n_chunks = resolve_chunk(None, n_obs, s, torch.float32)
+    overflow_rows(reset=True)
     zero_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -579,12 +606,15 @@ def phase_streaming(pl, ll_host, model, reff: float, res32, res64) -> None:
     wall = time.perf_counter() - t
     peak = torch.cuda.max_memory_allocated() / 1e9
     got = read_counts()
+    n_over = overflow_rows(reset=True)
     check(got["A"] == n_chunks and got["B"] == got["C"] == got["D"] == got["E"] == 0,
           f"kernel A launched {got['A']} times for {n_chunks} chunks of {chunk};"
           f" kernel B {got['B']}")
     print(f"  time  loo_streaming() {wall:.3f} s wall, {n_obs / wall:.0f} obs/s; peak device"
           f" memory {peak:.2f} GB; elpd_loo {res['elpd_loo']:.6f}, loo() {res32['elpd_loo']:.6f}",
           flush=True)
+    print(f"  rows  kernel A narrowed {n_over} of {n_obs} rows ({100 * n_over / n_obs:.2f}%) by a"
+          f" further digit", flush=True)
 
     # where one chunk's time goes (CUDA events, median of 3, the first chunk)
     from pyloo_tpu_torch.base import ISMethod

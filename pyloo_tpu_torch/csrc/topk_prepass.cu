@@ -29,26 +29,36 @@
 //      raw row is exact: x -> fl(x - C) never reverses an order, so the top
 //      k of x - C are the shifted top k of x;
 //   2. a two-level warp scan of the histogram finds the bin of the k-th key;
-//   3. a second pass over the row (from the L2 cache, where the first pass
-//      asked it to stay) appends every key in or above that bin to a
-//      candidate buffer (warp votes give the slots, no atomics), and kernel A
-//      sums the lppd term exp(min - x) and the non-tail mass of the keys
-//      below the bin, against that bin's lower edge;
-//   4. two more 10-bit digits over the candidates in the bin give the exact
-//      k-th key; the candidates above it are the winners, and the remaining
-//      slots take the k-th key itself (equal keys are equal bits, so ties are
-//      exact);
+//      when more keys lie in and above it than the candidate buffer holds (a
+//      concentrated row: draws of one observation's log-likelihood that
+//      differ by less than an eighth of an octave; long tie runs), a pass
+//      over the row from the L2 cache counts the next 12 bits of the keys in
+//      the bin, and then the last 8, until they fit;
+//   3. a pass over the row (from the L2 cache, where the first pass asked it
+//      to stay) appends every key in or above that bin to a candidate buffer
+//      (warp votes give the slots, no atomics), and kernel A sums the lppd
+//      term exp(min - x) and the non-tail mass of the keys below the bin,
+//      against that bin's lower edge;
+//   4. the digits of the bin not yet counted (two of 10 bits after the first
+//      digit, one of 8 after the second) over the candidates in the bin give
+//      the exact k-th key; the candidates above it are the winners, and the
+//      remaining slots take the k-th key itself (equal keys are equal bits,
+//      so ties are exact);
 //   5. the warp sorts the winners in registers (P = 32..1024 slots, with
 //      shuffles across lanes) and writes them;
 //   6. kernel A adds the non-tail mass of the candidates under the cutoff to
 //      the mass below the bin, rescaled from the edge to the cutoff.
 //
 // How the hard cases are handled:
-//   * Candidate overflow: when more keys lie in and above the k-th key's bin
-//     than the buffer holds (a constant row, long tie runs), the buffer keeps
-//     only the keys above the bin and step 4 reads the bin's keys from the
-//     row again: the same code, in the kernel.  Such rows are counted in
-//     *overflow when the caller passes a counter.
+//   * Concentrated rows: each further digit costs one more pass over the row
+//     from L2 (the keys outside the bin are skipped); the rows that needed
+//     one are counted in *overflow when the caller passes a counter.  Their
+//     keys crowd one or two first-digit bins, where the warp's atomics on one
+//     word queue: the load pass counts a lane's four keys of a 16-byte load
+//     with one atomic per distinct bin (hist_add4).  A tie run longer than
+//     the buffer leaves one key in the bin after the last digit: the buffer
+//     then takes only the keys above it, and the copies fill the remaining
+//     slots and join the mass below the bin.
 //   * The packed histograms hold two 16-bit counts a word (S <= 32768 keeps
 //     every count below 2^16), swizzled so that the scan reads shared memory
 //     without bank conflicts; the candidates and the second histogram reuse
@@ -59,8 +69,8 @@
 //     float32 as the plain version computes x - C, so vals and C are
 //     bitwise equal to it.  -inf entries take part in the selection like
 //     any value and are masked out of the min and the lppd sum.
-//   * The two row sums use the special-function unit's exp (their terms near
-//     1 dominate); the candidates' terms and the rescaling use expf.
+//   * The two row sums use the special-function unit's exp (row_exp); the
+//     candidates' terms and the rescaling use expf.
 //   * Launch checks: each entry point validates its sizes, returns the error
 //     of cudaFuncSetAttribute and of the occupancy query, and returns
 //     cudaGetLastError() right after the launch; the Python wrapper raises on
@@ -115,9 +125,21 @@ __device__ __forceinline__ int hist_word(int w) {
 }
 
 template <int kBins>
-__device__ __forceinline__ void hist_add(uint32_t* hist, uint32_t bin) {
+__device__ __forceinline__ void hist_add(uint32_t* hist, uint32_t bin, uint32_t n = 1u) {
   constexpr uint32_t kWords = kBins / 2;
-  atomicAdd(&hist[hist_word<kBins>(bin % kWords)], 1u << (16 * (bin / kWords)));
+  atomicAdd(&hist[hist_word<kBins>(bin % kWords)], n << (16 * (bin / kWords)));
+}
+
+// Counts four keys' bins with one atomic per distinct bin: a concentrated
+// row's keys share a bin, and the 32 lanes' atomics on one word would queue.
+template <int kBins>
+__device__ __forceinline__ void hist_add4(uint32_t* hist, uint32_t b0, uint32_t b1, uint32_t b2,
+                                          uint32_t b3) {
+  const bool e1 = b1 == b0, e2 = b2 == b0, e3 = b3 == b0;
+  hist_add<kBins>(hist, b0, 1u + e1 + e2 + e3);
+  if (!e1) hist_add<kBins>(hist, b1, 1u + (b2 == b1) + (b3 == b1));
+  if (!e2 && b2 != b1) hist_add<kBins>(hist, b2, 1u + (b3 == b2));
+  if (!e3 && b3 != b1 && b3 != b2) hist_add<kBins>(hist, b3, 1u);
 }
 
 template <int kBins>
@@ -223,12 +245,12 @@ __device__ __forceinline__ float4 load4(const float4* p) {
   return v;
 }
 
-// Calls f(v, valid) with the S values of row xr, the lanes of the warp in
-// step (so f may use warp votes): 16-byte loads of the aligned middle, two
-// in flight a lane (more measured slower: registers), the few values before
-// and after it one by one.
-template <bool kLast, typename F>
-__device__ __forceinline__ void warp_row(const float* xr, int S, F f) {
+// Calls f(v, valid) with the few values of row xr before and after its
+// aligned middle, one by one, and f4(v4, valid) with the 16-byte loads of
+// the middle, two in flight a lane (more measured slower: registers); the
+// lanes of the warp in step (so f and f4 may use warp votes).
+template <bool kLast, typename F, typename F4>
+__device__ __forceinline__ void warp_row(const float* xr, int S, F f, F4 f4) {
   constexpr int kUnroll = 2;
   const int lane = threadIdx.x & 31;
   const int head = min(S, static_cast<int>(((16 - (reinterpret_cast<uintptr_t>(xr) & 15)) & 15) >> 2));
@@ -246,15 +268,23 @@ __device__ __forceinline__ void warp_row(const float* xr, int S, F f) {
     for (int u = 0; u < kUnroll; ++u) {
       if (c0 + 32 * u < n4) {  // warp-uniform
         const bool valid = c0 + 32 * u + lane < n4;
-        f(v[u].x, valid);
-        f(v[u].y, valid);
-        f(v[u].z, valid);
-        f(v[u].w, valid);
+        f4(v[u], valid);
       }
     }
   }
   const int tail = head + 4 * n4;
   f(tail + lane < S ? xr[tail + lane] : 0.0f, tail + lane < S);
+}
+
+// Calls f(v, valid) with each of the S values of row xr.
+template <bool kLast, typename F>
+__device__ __forceinline__ void warp_row(const float* xr, int S, F f) {
+  warp_row<kLast>(xr, S, f, [&](float4 v, bool valid) {
+    f(v.x, valid);
+    f(v.y, valid);
+    f(v.z, valid);
+    f(v.w, valid);
+  });
 }
 
 // Appends key where take holds, the lanes in step: slots base + rank among
@@ -304,11 +334,11 @@ __device__ __forceinline__ void warp_sort_desc(uint32_t (&v)[kVPL]) {
   }
 }
 
-// exp(z) from the special-function unit: about 2 ulp plus |z| * 6e-8
-// relative, subnormal results flushed to 0.  For the two row sums: each has a
-// term near 1 (the row minimum's; the largest key below the bin's) that the
-// terms near z = 0 dominate, so neither the error nor the flush shows.
-__device__ __forceinline__ float fast_exp(float z) {
+// exp(z) for the two row sums' terms, from the special-function unit: about
+// 2 ulp plus |z| * 6e-8 relative, results below 2^-126 flushed to 0.  Each
+// sum meets a term of 1 (the row minimum's in the lppd sum; the k-th key's,
+// once the two parts of the non-tail mass are added), so neither shows.
+__device__ __forceinline__ float row_exp(float z) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(z * 1.4426950408889634f));
   return y;
@@ -340,13 +370,25 @@ loo_prepass_kernel(const float* __restrict__ x, int B, int S, int ld, int k, int
     // 1. the row from device memory: max, min and the first digit
     float mx = -CUDART_INF_F;
     float mn = CUDART_INF_F;
-    warp_row<false>(xr, S, [&](float v, bool valid) {
+    auto one = [&](float v, bool valid) {
       if (!valid) return;
       if constexpr (kFused) {
         mx = fmaxf(mx, v);
         if (v != -CUDART_INF_F) mn = fminf(mn, v);
       }
       hist_add<kBins1>(hist, order_key(v) >> 20);
+    };
+    warp_row<false>(xr, S, one, [&](float4 v, bool valid) {
+      if (!valid) return;
+      if constexpr (kFused) {
+        mx = fmaxf(fmaxf(mx, v.x), fmaxf(v.y, fmaxf(v.z, v.w)));
+        if (v.x != -CUDART_INF_F) mn = fminf(mn, v.x);
+        if (v.y != -CUDART_INF_F) mn = fminf(mn, v.y);
+        if (v.z != -CUDART_INF_F) mn = fminf(mn, v.z);
+        if (v.w != -CUDART_INF_F) mn = fminf(mn, v.w);
+      }
+      hist_add4<kBins1>(hist, order_key(v.x) >> 20, order_key(v.y) >> 20, order_key(v.z) >> 20,
+                        order_key(v.w) >> 20);
     });
     // cut 1: load
     __syncwarp();
@@ -356,83 +398,94 @@ loo_prepass_kernel(const float* __restrict__ x, int B, int S, int ld, int k, int
       mn = warp_min(mn);
     }
 
-    // 2. the bin of the k-th key
-    const Found first = warp_find<kBins1>(hist, k);
-    const uint32_t bin1 = static_cast<uint32_t>(first.bin);
-    const int n_above = k - first.rank;  // keys in higher bins
-    const bool spill = n_above + first.count > cap;
-    const int n_c = spill ? n_above : n_above + first.count;  // candidates kept
+    // 2. the bin of the k-th key: keys in [edge, edge + 2^lo), rank f.rank
+    // among them; narrowed by the next digit, counted over the row from the
+    // cache, while the keys in and above it overflow the candidate buffer
+    Found f = warp_find<kBins1>(hist, k);
+    uint32_t edge = static_cast<uint32_t>(f.bin) << 20;
+    int lo = 20;
+#pragma unroll 1
+    while (k - f.rank + f.count > cap && lo > 0) {
+      const int s = lo > 12 ? lo - 12 : 0;  // 12 bits, then the last 8
+      const uint32_t mask = (1u << (lo - s)) - 1u;
+      __syncwarp();
+      for (int i = lane; i < kBins1 / 8; i += 32) h4[i] = make_uint4(0u, 0u, 0u, 0u);
+      __syncwarp();
+      warp_row<false>(xr, S, [&](float v, bool valid) {
+        const uint32_t key = order_key(v);
+        if (valid && (key >> lo) == (edge >> lo)) hist_add<kBins1>(hist, (key >> s) & mask);
+      });
+      __syncwarp();
+      f = warp_find<kBins1>(hist, f.rank);
+      edge |= static_cast<uint32_t>(f.bin) << s;
+      lo = s;
+    }
+    if (lo < 20 && lane == 0 && overflow != nullptr) atomicAdd(overflow, 1u);
+    // a tie run longer than the buffer: only the keys above the k-th key
+    // (edge itself, lo = 0) are candidates; its copies join the mass below
+    const bool ties_out = k - f.rank + f.count > cap;
+    const uint32_t take_from = ties_out ? edge + 1u : edge;
+    const int n_c = k - f.rank + (ties_out ? 0 : f.count);  // candidates kept
     __syncwarp();
 
-    // 3. the row again, from the cache: the candidates, the keys in and above
-    // the bin (only those above it when they do not fit).  Kernel A also sums
-    // the lppd term exp(min - x) and, for the non-tail mass, exp(x - C - ref)
-    // over the keys below the bin: each is below the k-th value, so below the
-    // cutoff, and ref (the bin's lower edge, shifted) keeps each term <= 1
-    // until the cutoff is known.
-    const float ref = kFused ? fmaxf(key_value(bin1 << 20) - C, -FLT_MAX) : 0.0f;
+    // 3. the row again, from the cache: the candidates, the keys >= take_from.
+    // Kernel A also sums the lppd term exp(min - x) and, for the non-tail
+    // mass, exp(x - C - ref) over the other keys: each is at most the k-th
+    // value, so under the cutoff, and ref (the bin's lower edge, shifted)
+    // keeps each term <= 1 until the cutoff is known.
+    const float ref = kFused ? fmaxf(key_value(edge) - C, -FLT_MAX) : 0.0f;
     int n_kept = 0;
     float s_ll = 0.0f;
     float s_lo = 0.0f;
     warp_row<true>(xr, S, [&](float v, bool valid) {
       const uint32_t key = order_key(v);
-      const uint32_t d = key >> 20;
-      n_kept += warp_append(cand, n_kept, cap, valid && (d > bin1 || (d == bin1 && !spill)), key);
+      const bool take = key >= take_from;
+      n_kept += warp_append(cand, n_kept, cap, valid && take, key);
       if constexpr (kFused) {
         if (valid && v != -CUDART_INF_F) {
-          s_ll += fast_exp(mn - v);
-          if (d < bin1) s_lo += fast_exp((v - C) - ref);
+          s_ll += row_exp(mn - v);
+          if (!take) s_lo += row_exp((v - C) - ref);
         }
       }
     });
     __syncwarp();
     // cut 2: radix select
 
-    // 4. the exact k-th key: two 10-bit digits over the candidates in the bin
-    // (over the row's keys in the bin, when they did not fit)
-    const int n_src = spill ? S : n_c;
-    auto src_key = [&](int i) { return spill ? order_key(xr[i]) : cand[i]; };
-    uint32_t prefix = bin1 << 20;
-    int krem = first.rank;
+    // 4. the exact k-th key: the bin's remaining digits (10 bits at most
+    // each) over the candidates in it
+    uint32_t kth_key = edge;
+    int krem = f.rank;
 #pragma unroll 1
-    for (int shift = 10; shift >= 0; shift -= 10) {
+    while (lo > 0) {
+      const int s = lo > 10 ? lo - 10 : 0;
+      const uint32_t mask = (1u << (lo - s)) - 1u;
       for (int i = lane; i < kBins2 / 2; i += 32) hist2[i] = 0;
       __syncwarp();
-      const uint32_t mask = kFullMask << (shift + 10);
-      for (int i = lane; i < n_src; i += 32) {
-        const uint32_t key = src_key(i);
-        if ((key & mask) == prefix) hist_add<kBins2>(hist2, (key >> shift) & (kBins2 - 1));
+      for (int i = lane; i < n_c; i += 32) {
+        const uint32_t key = cand[i];
+        if ((key >> lo) == (kth_key >> lo)) hist_add<kBins2>(hist2, (key >> s) & mask);
       }
       __syncwarp();
-      const Found f = warp_find<kBins2>(hist2, krem);
-      prefix |= static_cast<uint32_t>(f.bin) << shift;
-      krem = f.rank;
+      const Found g = warp_find<kBins2>(hist2, krem);
+      kth_key |= static_cast<uint32_t>(g.bin) << s;
+      krem = g.rank;
+      lo = s;
       __syncwarp();
     }
-    const uint32_t kth_key = prefix;
     const int n_gt = k - krem;  // keys strictly above the k-th
 
-    // the winners: candidates above the k-th key (and a spilled row's keys in
-    // the bin above it); its copies fill up
+    // the winners: candidates above the k-th key; its copies fill up
     int pos = 0;
     for (int base = 0; base < n_c; base += 32) {
       const int i = base + lane;
       const uint32_t key = i < n_c ? cand[i] : 0u;
       pos += warp_append(win, pos, P, i < n_c && key > kth_key, key);
     }
-    if (spill) {
-      for (int base = 0; base < S; base += 32) {
-        const int i = base + lane;
-        const uint32_t key = i < S ? order_key(xr[i]) : 0u;
-        pos += warp_append(win, pos, P, i < S && (key >> 20) == bin1 && key > kth_key, key);
-      }
-      if (lane == 0 && overflow != nullptr) atomicAdd(overflow, 1u);
-    }
     for (int j = n_gt + lane; j < P; j += 32) win[j] = j < k ? kth_key : 0u;
     __syncwarp();
     // cut 3: compaction
 
-    // kernel A: the non-tail mass of the keys in and above the bin
+    // kernel A: the non-tail mass of the candidates
     float xcut = 0.0f;
     float s_hi = 0.0f;
     if constexpr (kFused) {
@@ -442,13 +495,6 @@ loo_prepass_kernel(const float* __restrict__ x, int B, int S, int ld, int k, int
       for (int i = lane; i < n_c; i += 32) {
         const float xs = key_value(cand[i]) - C;
         if (xs <= xcut) s_hi += expf(xs - xcut);
-      }
-      if (spill) {
-        for (int i = lane; i < S; i += 32) {
-          const uint32_t key = order_key(xr[i]);
-          const float xs = key_value(key) - C;
-          if ((key >> 20) == bin1 && xs <= xcut) s_hi += expf(xs - xcut);
-        }
       }
       __syncwarp();
     }

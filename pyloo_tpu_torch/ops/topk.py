@@ -66,13 +66,13 @@ BITONIC_MAX_K = _SEG
 TOPK_VARIANTS = ("roll", "reshape", "natural")
 # log(float64 tiny): the reference's tail-cutoff floor (pyloo psis.py:90)
 _CUTOFF_FLOOR = float(math.log(2.2250738585072014e-308))
-_OVERFLOW: dict = {}  # device -> uint32 count of rows whose candidates overflowed
+_OVERFLOW: dict = {}  # device -> uint32 count of rows that overflowed the first digit
 
 
 def candidate_cap(k: int) -> int:
     """Slots of kernels A and B's candidate buffer for this k: the keys in
-    and above the k-th key's first-digit bin go there, and a row with more
-    finishes its selection over the whole row.  Must equal ``cand_cap`` in
+    and above the k-th key's bin go there, and a row with more narrows the
+    bin by a further digit first.  Must equal ``cand_cap`` in
     csrc/topk_prepass.cu (1536, and P / 2 more slots when the sort takes
     P > 256, P the power of two >= max(k, 32))."""
     p = 32
@@ -146,8 +146,9 @@ def _overflow_counter(device) -> torch.Tensor:
 
 
 def overflow_rows(device="cuda", reset: bool = False) -> int:
-    """Rows that kernels A and B finished over the whole row because more
-    than :func:`candidate_cap` keys lay in or above the k-th key's bin, counted on
+    """Rows that kernels A and B narrowed by a further digit (one more pass
+    over the row) because more than :func:`candidate_cap` keys lay in or
+    above the k-th key's first-digit bin, counted on
     ``device`` since the last reset.  Reads the device counter (a
     synchronisation); ``reset`` sets it to 0 afterwards."""
     counter = _overflow_counter(device)
@@ -312,8 +313,8 @@ def _find_bin(counts: torch.Tensor, rank: torch.Tensor):
     """Per row of a ``(B, bins)`` histogram: the bin, counted from the top,
     that holds the rank-th largest key; the rank within it; its count."""
     from_top = counts.flip(1).cumsum(1)
-    # clamped: a spilled row's candidate buffer may hold fewer keys than its
-    # rank, and what this returns for it is not used
+    # clamped: a row that takes no part in this digit may hold fewer keys
+    # than its rank, and what this returns for it is not used
     j = (from_top < rank[:, None]).sum(1, keepdim=True).clamp_max(counts.shape[1] - 1)
     bins = counts.shape[1] - 1 - j
     in_bin = counts.gather(1, bins)
@@ -321,31 +322,34 @@ def _find_bin(counts: torch.Tensor, rank: torch.Tensor):
     return bins[:, 0], rank - above[:, 0], in_bin[:, 0]
 
 
-def _refine(src: torch.Tensor, member: torch.Tensor, prefix: torch.Tensor, krem: torch.Tensor):
-    """The last two 10-bit digits of the k-th key over the keys ``src`` where
-    ``member`` holds and the first digit is the k-th key's: the exact k-th key
-    and how many copies of it belong."""
-    for shift in (10, 0):
-        mask = (0xFFFFFFFF << (shift + 10)) & 0xFFFFFFFF
-        m = member & ((src & mask) == prefix[:, None])
-        digit = torch.where(m, (src >> shift) & 1023, 0)
-        hist = torch.zeros(src.shape[0], 1024, dtype=torch.int64, device=src.device)
-        hist.scatter_add_(1, digit, m.to(torch.int64))
-        b, krem, _ = _find_bin(hist, krem)
-        prefix = prefix | (b << shift)
-    return prefix, krem
+def _digit(src, member, edge, lo, s, krem, active):
+    """One radix digit, bits ``s`` to ``lo - 1``, of the keys ``src`` where
+    ``member`` holds and that lie in the bin ``[edge, edge + 2^lo)``, on the
+    ``active`` rows: their histogram, the bin of the krem-th largest key in
+    it, added to ``edge``.  Returns ``(edge, krem, count)``, the count of keys
+    in the new bin (``lo``, ``s`` per row; the other rows pass through)."""
+    in_bin = member & ((src >> lo[:, None]) == (edge >> lo)[:, None])
+    digit = torch.where(in_bin, (src >> s[:, None]) & ((1 << (lo - s)) - 1)[:, None], 0)
+    hist = torch.zeros(src.shape[0], 4096, dtype=torch.int64, device=src.device)
+    hist.scatter_add_(1, digit, in_bin.to(torch.int64))
+    b, r, count = _find_bin(hist, krem)
+    return torch.where(active, edge | (b << s), edge), torch.where(active, r, krem), count
 
 
 def topk_radix_plain(x: torch.Tensor, k: int):
-    """Kernel B's selection, step by step, in tensor ops: ``(vals, spilled)``.
+    """Kernel B's selection, step by step, in tensor ops: ``(vals, refined)``.
 
-    1. a histogram of the first digit, the top 12 bits of each key;
-    2. the bin of the k-th key;
-    3. the candidates, the keys in and above that bin, go to a buffer of
-       :func:`candidate_cap` slots; when there are more (``spilled`` rows)
-       only the keys above the bin do;
-    4. two 10-bit digits over the buffer's keys in the bin, or over the whole
-       row's when it spilled, give the exact k-th key;
+    1. a histogram of the first digit, the top 12 bits of each key, and the
+       bin of the k-th key;
+    2. while the keys in and above that bin are more than the candidate
+       buffer's :func:`candidate_cap` slots, the next digit of the keys in
+       the bin (12 bits, then the last 8) narrows it: ``refined`` rows, each
+       digit one more pass over the row in the kernels;
+    3. the candidates, the keys in and above the bin, go to the buffer (when
+       a tie run is longer than the buffer, only the keys above the k-th
+       key);
+    4. the bin's remaining digits, 10 bits at most each, over the buffer's
+       keys in the bin give the exact k-th key;
     5. the keys above it are the winners, the k-th key fills the remaining
        slots, and the winners are sorted descending.
 
@@ -356,30 +360,38 @@ def topk_radix_plain(x: torch.Tensor, k: int):
     """
     b = x.shape[0]
     key = _order_key(x)
-    d1 = key >> 20
-    hist = torch.zeros(b, 4096, dtype=torch.int64, device=x.device)
-    hist.scatter_add_(1, d1, torch.ones_like(d1))
-    rank = torch.full((b,), k, dtype=torch.int64, device=x.device)
-    bin1, krem, n_tie = _find_bin(hist, rank)
-    n_above = k - krem
     cap = candidate_cap(k)
-    spilled = n_above + n_tie > cap
-    is_cand = d1 >= bin1[:, None]
+    every = torch.ones_like(key, dtype=torch.bool)
+    full = lambda v: torch.full((b,), v, dtype=torch.int64, device=x.device)  # noqa: E731
+    edge, krem, count = _digit(key, every, full(0), full(32), full(20), full(k), every[:, 0])
+    lo = full(20)
+    refined = ~every[:, 0]
+    for s in (8, 0):
+        active = k - krem + count > cap
+        refined |= active
+        s_row = torch.where(active, s, lo)
+        edge, krem, count_s = _digit(key, every, edge, lo, s_row, krem, active)
+        count = torch.where(active, count_s, count)
+        lo = s_row
+    ties_out = k - krem + count > cap
+    take_from = torch.where(ties_out, edge + 1, edge)
+    n_c = k - krem + torch.where(ties_out, 0, count)
 
-    # the candidate buffer: the keys in and above the bin, moved to the front
+    # the candidate buffer: the keys >= take_from, moved to the front
+    is_cand = key >= take_from[:, None]
     order = torch.argsort((~is_cand).to(torch.int8), dim=1, stable=True)[:, :cap]
     buf = key.gather(1, order)
-    in_buf = torch.arange(buf.shape[1], device=x.device)[None, :] < (n_above + n_tie)[:, None]
-    prefix = bin1 << 20
-    kth_buf, krem_buf = _refine(buf, in_buf, prefix, krem)
-    kth_row, krem_row = _refine(key, torch.ones_like(is_cand), prefix, krem)
-    kth = torch.where(spilled, kth_row, kth_buf)
-    krem = torch.where(spilled, krem_row, krem_buf)
+    in_buf = torch.arange(buf.shape[1], device=x.device)[None, :] < n_c[:, None]
+    kth = edge
+    while bool((lo > 0).any()):
+        s = torch.clamp_min(lo - 10, 0)
+        kth, krem, _ = _digit(buf, in_buf, kth, lo, s, krem, lo > 0)
+        lo = s
 
     top = torch.sort(torch.where(key > kth[:, None], key, -1), dim=1, descending=True).values[:, :k]
     n_gt = k - krem
     top = torch.where(torch.arange(k, device=x.device)[None, :] < n_gt[:, None], top, kth[:, None])
-    return _key_value(top), spilled
+    return _key_value(top), refined
 
 
 def _sorted_segments(x: torch.Tensor, natural: bool) -> torch.Tensor:

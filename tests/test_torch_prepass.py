@@ -196,13 +196,13 @@ def test_radix_plain_on_special_rows(k):
     k = s if k == "S" else k
     x = _special_rows(s)
     xt = torch.from_numpy(x)
-    vals, spilled = topk.topk_radix_plain(xt, k)
+    vals, refined = topk.topk_radix_plain(xt, k)
     np.testing.assert_array_equal(vals.numpy(), torch.topk(xt, k).values.numpy())
     np.testing.assert_array_equal(vals.numpy(), np.asarray(jax.lax.top_k(jnp.asarray(x), k)[0]))
-    # the tie row and the shared-top-bits row finish over the whole row when
-    # it is wider than the candidate buffer
-    assert spilled[1] == spilled[2] == (s > topk.candidate_cap(k))
-    assert not spilled[7]
+    # the tie row and the shared-top-bits row need a further digit when they
+    # are wider than the candidate buffer
+    assert refined[1] == refined[2] == (s > topk.candidate_cap(k))
+    assert not refined[7]
     # kernel A selects on the raw row and shifts the winners
     c = xt.amax(dim=1)
     shifted = vals - c[:, None]
@@ -226,10 +226,45 @@ def test_radix_plain_matches_pallas_interpret():
     _assert_prepass(topk.loo_prepass(xt[normal], 191), want_a)
 
 
+def _concentrated_rows(s=4000, seed=5):
+    """x rows whose draws differ by less than one first-digit bin (an eighth
+    of an octave): a posterior's spread (x = 0.7 + 0.01 z) with some -inf;
+    values that share their top 24 bits (the last 8 tell them apart); two
+    neighbouring values, each a tie run longer than the candidate buffer;
+    and a normal row that needs no further digit."""
+    rng = np.random.default_rng(seed)
+    x = (0.7 + 0.01 * rng.normal(size=(4, s))).astype(np.float32)
+    x[0, ::9] = -np.inf
+    x[1] = (1.0 + rng.integers(0, 256, size=s) * 2.0**-23).astype(np.float32)
+    x[2] = np.where(rng.random(s) < 0.5, np.float32(1.5), np.float32(1.5 + 2.0**-22))
+    x[3] = rng.normal(1.0, 0.8, size=s).astype(np.float32)
+    return x
+
+
+@pytest.mark.parametrize("k", [1, 191, 545])
+def test_radix_plain_on_concentrated_rows(k):
+    x = _concentrated_rows()
+    xt = torch.from_numpy(x)
+    vals, refined = topk.topk_radix_plain(xt, k)
+    np.testing.assert_array_equal(vals.numpy(), torch.topk(xt, k).values.numpy())
+    np.testing.assert_array_equal(vals.numpy(), np.asarray(jax.lax.top_k(jnp.asarray(x), k)[0]))
+    assert refined.tolist() == [True, True, True, False]
+    shifted = vals - xt.amax(dim=1)[:, None]
+    np.testing.assert_array_equal(shifted.numpy(), topk.loo_prepass_plain(xt, k)[0].numpy())
+    _assert_prepass(topk.loo_prepass(xt, k), _jax_oracle(x, k))
+
+
+def test_radix_plain_concentrated_matches_pallas_interpret():
+    x = _concentrated_rows(s=2500)
+    vals, _ = topk.topk_radix_plain(torch.from_numpy(x), 191)
+    want = pallas_topk_desc(jnp.asarray(x), 191, interpret=True, blk=1)
+    np.testing.assert_array_equal(vals.numpy(), np.asarray(want))
+
+
 @pytest.mark.parametrize("k", [200, 400])  # sort slots P = 256 and P = 512
 def test_radix_plain_candidate_buffer_edge(k):
     # exactly candidate_cap(k) keys in and above the k-th key's bin fit; one
-    # more spills; the result is the same either way
+    # more needs a further digit; the result is the same either way
     cap = topk.candidate_cap(k)
     s = cap + 500
     x = np.full((2, s), 0.1, np.float32)
@@ -238,8 +273,8 @@ def test_radix_plain_candidate_buffer_edge(k):
     x[:, 150:cap] = 1.0 + rng.integers(0, 2**20, size=(2, cap - 150)) * 2.0**-23
     x[1, cap] = 1.0  # one more key in the bin
     xt = torch.from_numpy(x)
-    vals, spilled = topk.topk_radix_plain(xt, k)
-    assert spilled.tolist() == [False, True]
+    vals, refined = topk.topk_radix_plain(xt, k)
+    assert refined.tolist() == [False, True]
     np.testing.assert_array_equal(vals.numpy(), torch.topk(xt, k).values.numpy())
 
 
