@@ -7,7 +7,8 @@ Usage, from the root of the repository, on a machine with one CUDA card::
 Phases:
 
 0. the card (``nvidia-smi`` name and power limit) and the kernel build (one
-   ``nvcc`` per source, started together);
+   ``nvcc`` per source, started together), with each kernel's registers and
+   spill bytes as ``ptxas`` reports them;
 1. kernels A and B against their plain PyTorch versions at the shapes the
    main paths give them (131,072 x 4,000; 16,384 x 16,000; 4,096 x 32,768;
    one part and the merge of phase 2b's 80,000 draws) and on concentrated
@@ -15,9 +16,12 @@ Phases:
    SM and the rows whose first radix digit overflowed the kernels' candidate
    buffer, counted against the plain version of the kernels' selection scheme;
 1b. kernels C and D (``topk_desc(variant="reshape"|"natural")``) against
-   their plain versions and ``torch.topk``, with their times; then the
-   profiling harness (kernel E) over the three top-k variants at
-   125,000 x 4,000 -> 191;
+   their plain versions (the TPU kernels' tree order and the CUDA kernels'
+   fold order) and ``torch.topk``, bitwise, with their times at
+   131,072 x 4,000, 16,384 x 16,000 and 4,096 x 32,768, on concentrated
+   rows, and on ragged, short and unaligned rows; then the profiling
+   harness (kernel E) over the three top-k variants at 125,000 x 4,000 ->
+   191;
 2. ``loo()`` in float32 at 1,000,000 observations x 4,000 draws (a logistic
    regression with 32 features, made on the card from a seed), through the
    fused prepass kernel, checked against the plain scorer on the card (which
@@ -177,19 +181,22 @@ def hold_topk(kern: dict, x, k: int, what: str) -> None:
 
 
 def time_kernel(kern: dict, name: str, fn, plain, x, k: int, bound, library,
-                data: str = "smoke rows") -> dict:
+                data: str = "smoke rows", blocks_per_sm=None, plain_runs: int = 7) -> dict:
     """Times of a kernel, its plain version (before and after) and the
-    library call at one shape, with the kernel's blocks per SM; printed and
+    library call at one shape, with the kernel's blocks per SM
+    (``blocks_per_sm()``; kernel A's or B's query when None); printed and
     added to ``kern["by_shape"]``."""
     from pyloo_tpu_torch.ops import topk
 
     rows, s = x.shape
-    row = {"shape": [rows, s, k], "data": data, "plain_ms": median_ms(lambda: plain(x, k)),
+    row = {"shape": [rows, s, k], "data": data,
+           "plain_ms": median_ms(lambda: plain(x, k), plain_runs),
            "ms": median_ms(lambda: fn(x, k))}
-    row["plain_ms_after"] = median_ms(lambda: plain(x, k))
+    row["plain_ms_after"] = median_ms(lambda: plain(x, k), plain_runs)
     row["bound_ms"], row["bound_by"] = bound
     row["library_ms"] = median_ms(lambda: library(x, k)) if library else None
-    row["blocks_per_sm"] = topk.blocks_per_sm(s, k, fused=name == "loo_prepass")
+    row["blocks_per_sm"] = (blocks_per_sm() if blocks_per_sm
+                            else topk.blocks_per_sm(s, k, fused=name == "loo_prepass"))
     kern["by_shape"].append(row)
     lib = f", torch.topk {row['library_ms']:.3f} ms" if library else ""
     print(f"  time  {name} ({rows}, {s}) k={k}, {data}: kernel {row['ms']:.3f} ms"
@@ -307,6 +314,23 @@ def phase_kernels(kernels: dict, tail_length) -> None:
           f" log_sum_ll {errs[3]:.3g}")
 
 
+def hold_variant(kern: dict, letter: str, variant: str, plains, x, k: int, what: str) -> None:
+    """Kernel C or D against its plain versions (the tree order of the TPU
+    kernel, the fold order of the CUDA kernel) and torch.topk, bitwise."""
+    import torch
+
+    from pyloo_tpu_torch.ops import topk
+
+    got = topk.topk_desc(x, k, variant=variant)
+    wants = [plain(x, k) for plain in plains] + [torch.topk(x, k, dim=1).values]
+    torch.cuda.synchronize()
+    kern["max_abs_err"] = max(kern["max_abs_err"],
+                              float((got - wants[0]).abs().nan_to_num().max()))
+    check(all(torch.equal(got, want) for want in wants),
+          f"kernel {letter} {what} k={k}: bitwise to its plain versions (tree order, fold"
+          f" order) and to torch.topk")
+
+
 def phase_variants(kernels: dict) -> None:
     import torch
 
@@ -315,34 +339,69 @@ def phase_variants(kernels: dict) -> None:
 
     print("phase 1b: kernels C and D against their plain versions and torch.topk", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(2)
-    variants = {"topk_reshape": ("reshape", topk.topk_desc_reshape_plain),
-                "topk_natural": ("natural", topk.topk_desc_natural_plain)}
-    for rows, s, k in [(131_072, 4_000, 191), (16_384, 16_000, 256)]:
+    # kernel key -> (letter, variant, plain in the TPU kernel's tree order, in the fold order)
+    variants = {
+        "topk_reshape": ("C", "reshape", topk.topk_desc_reshape_plain,
+                         topk.topk_desc_reshape_fold_plain),
+        "topk_natural": ("D", "natural", topk.topk_desc_natural_plain,
+                         topk.topk_desc_natural_fold_plain),
+    }
+    topk_values = lambda x, k: torch.topk(x, k, dim=1).values  # noqa: E731
+
+    def hold_and_time(x, k, what, data="smoke rows", plain_runs=7):
+        rows, s = x.shape
+        for name, (letter, variant, plain, fold) in variants.items():
+            kern = kernels[name]
+            hold_variant(kern, letter, variant, (plain, fold), x, k, what)
+            row = time_kernel(
+                kern, name, lambda x, k: topk.topk_desc(x, k, variant=variant), plain, x, k,
+                topk_bound(rows, s, k), topk_values, data,
+                blocks_per_sm=lambda: topk.bitonic_blocks_per_sm(variant), plain_runs=plain_runs)
+            if (s, data) == (4_000, "smoke rows"):
+                for key in ("ms", "plain_ms", "plain_ms_after", "bound_ms", "bound_by",
+                            "library_ms"):
+                    kern[key] = row[key]
+
+    for name in variants:
+        kernels[name]["by_shape"] = []
+    for rows, s, k in [(131_072, 4_000, 191), (16_384, 16_000, 256), (4_096, 32_768, 256)]:
         x = smoke_rows(rows, s, gen)
-        want = torch.topk(x, k, dim=1).values
         if s == 4_000:
-            topk_ms = median_ms(lambda: torch.topk(x, k, dim=1).values)
-        for name, (variant, plain) in variants.items():
-            got = topk.topk_desc(x, k, variant=variant)
-            got_plain = plain(x, k)
-            torch.cuda.synchronize()
-            err = float((got - got_plain).abs().nan_to_num().max())
-            kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], err)
-            check(torch.equal(got, got_plain) and torch.equal(got, want),
-                  f"kernel {KERNEL_COUNTERS[name]} ({rows}, {s}) k={k}: bitwise to its plain"
-                  f" version and to torch.topk")
-            if s == 4_000:
-                kern = kernels[name]
-                kern["plain_ms"] = median_ms(lambda: plain(x, k))
-                kern["ms"] = median_ms(lambda: topk.topk_desc(x, k, variant=variant))
-                kern["plain_ms_after"] = median_ms(lambda: plain(x, k))
-                kern["bound_ms"], kern["bound_by"] = topk_bound(rows, s, k)
-                kern["library_ms"] = topk_ms
-                print(f"  time  {name} ({rows}, {s}) k={k}: kernel {kern['ms']:.3f} ms, plain"
-                      f" {kern['plain_ms']:.3f} / {kern['plain_ms_after']:.3f} ms (before /"
-                      f" after), torch.topk {kern['library_ms']:.3f} ms", flush=True)
-            del got, got_plain
-        del x, want
+            # row 4 mixes +0.0 and -0.0 around the k-th value: one of each must
+            # survive every compare-exchange, so the bit patterns are the
+            # order-preserving keys' top k
+            head = x[:64]
+            keys = topk._key_value(torch.topk(topk._order_key(head), k, dim=1).values)
+            for letter, variant, _, _ in variants.values():
+                got = topk.topk_desc(head, k, variant=variant)
+                check(torch.equal(got.view(torch.int32), keys.view(torch.int32)),
+                      f"kernel {letter} ({rows}, {s}) k={k}: the first 64 rows bit for bit,"
+                      f" +0.0 above -0.0")
+        hold_and_time(x, k, f"({rows}, {s})", plain_runs=7 if s == 4_000 else 3)
+        del x
+
+    # concentrated rows: the network does not look at the data
+    rows, s, k = 131_072, 4_000, 191
+    x = 0.7 + 0.01 * torch.randn(rows, s, device="cuda", generator=gen)
+    hold_and_time(x, k, f"concentrated ({rows}, {s})", data="concentrated rows")
+    del x
+
+    # rows that are ragged, shorter than a segment, one value past a power of
+    # two of segments, unaligned (4-byte loads), and the smallest and largest k
+    wide = smoke_rows(4_096, 4_101, gen)
+    odd = [
+        (wide[:, 3:4_003], 191, "a view at column 3 of rows 4,101 apart (4096, 4000)"),
+        (wide[:, :4_000], 1, "(4096, 4000) of rows 4,101 apart"),
+        (smoke_rows(4_096, 4_000, gen), 256, "(4096, 4000)"),
+        (smoke_rows(4_096, 300, gen), 256, "(4096, 300)"),
+        (smoke_rows(4_096, 255, gen), 255, "(4096, 255)"),
+        (smoke_rows(4_096, 255, gen), 1, "(4096, 255)"),
+        (smoke_rows(2_048, 16_385, gen), 256, "(2048, 16385)"),
+    ]
+    for x, k, what in odd:
+        for name, (letter, variant, plain, fold) in variants.items():
+            hold_variant(kernels[name], letter, variant, (plain, fold), x, k, what)
+    del wide, odd, x
 
     # kernel E: the profiling harness over each variant, its own main path
     b, s, k = 125_000, 4_000, 191
@@ -745,9 +804,21 @@ def main() -> int:
     t = time.perf_counter()
     _build.load()
     print(f"  build {time.perf_counter() - t:.2f} s into {_build.BUILD_DIR}", flush=True)
+    # ptxas, per kernel: "Function properties for NAME", its spill line, its registers
+    function, spill, bitonic_spills = "", "", []
     for line in _build.build_log.splitlines():
-        if "registers" in line:
-            print("  ptxas" + line.split("ptxas info    :")[-1], flush=True)
+        if "Function properties for" in line:
+            function = line.split("Function properties for")[-1].strip()
+        elif "bytes spill" in line:
+            spill = line.strip()
+            if "topk_bitonic_kernel" in function:
+                bitonic_spills.append(spill)
+        elif "registers" in line:
+            print("  ptxas" + line.split("ptxas info    :")[-1] + "; " + spill, flush=True)
+    check(len(bitonic_spills) == 4 and all(
+        "0 bytes spill stores, 0 bytes spill loads" in line for line in bitonic_spills),
+        f"ptxas reports 0 bytes of spill for kernels C and D ({len(bitonic_spills)}"
+        f" instantiations: C and D, with 16-byte and with 4-byte loads)")
 
     prepass, bitonic = "pyloo_tpu_torch/csrc/topk_prepass.cu", "pyloo_tpu_torch/csrc/topk_bitonic.cu"
 
@@ -794,7 +865,7 @@ def main() -> int:
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}))
+                                             "count": 1}}))  # the cards this run used
     return 0
 
 

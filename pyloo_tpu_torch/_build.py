@@ -110,6 +110,8 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = [_INT, _VOID_P, _INT, _INT, _INT, _INT, _VOID_P, _VOID_P]
             fn.restype = _INT
+        lib.pyloo_bitonic_blocks_per_sm.argtypes = [_INT, _INT]
+        lib.pyloo_bitonic_blocks_per_sm.restype = _INT
         lib.pyloo_error_string.argtypes = [_INT]
         lib.pyloo_error_string.restype = ctypes.c_char_p
         _lib = lib

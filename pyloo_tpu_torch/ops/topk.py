@@ -11,7 +11,11 @@ for Hopper replace the TPU's Pallas kernels:
   follows step by step;
 * kernels C and D, :func:`topk_desc` with ``variant="reshape"`` and
   ``"natural"`` — ``_kernel`` and ``_kernel_natural``, bitonic sorting
-  networks over 256-wide segments, in ``csrc/topk_bitonic.cu``.
+  networks over 256-wide segments, in ``csrc/topk_bitonic.cu``.  The TPU
+  kernels merge the sorted segments as a tree
+  (:func:`topk_desc_reshape_plain`, :func:`topk_desc_natural_plain`); the
+  CUDA kernels fold them one after another into a running top 256
+  (:func:`topk_desc_reshape_fold_plain`, :func:`topk_desc_natural_fold_plain`).
 
 Each wrapper launches its kernel for a CUDA tensor, counts the launch in its
 ``launches`` attribute (for :func:`topk_desc`, a dict keyed by variant), and
@@ -43,12 +47,15 @@ __all__ = [
     "topk_radix_plain",
     "overflow_rows",
     "blocks_per_sm",
+    "bitonic_blocks_per_sm",
     "BITONIC_MAX_K",
     "TOPK_VARIANTS",
     "topk_desc",
     "topk_desc_plain",
     "topk_desc_reshape_plain",
     "topk_desc_natural_plain",
+    "topk_desc_reshape_fold_plain",
+    "topk_desc_natural_fold_plain",
 ]
 
 # One block holds one row in shared memory: (S + 1024) float32 must fit the
@@ -58,11 +65,13 @@ __all__ = [
 MAX_S = 32768
 MAX_K = 1024
 # Kernels C and D keep each 256-wide segment's top 256, so k <= 256 (the TPU
-# kernels' list height); their S cap is MAX_S (the row, padded to a power of
-# two of segments, in shared memory).  Must equal kMaxK / kMaxS in
-# csrc/topk_bitonic.cu.
+# kernels' list height); their S cap is MAX_S, as for A and B.  Must equal
+# kMaxK / kMaxS in csrc/topk_bitonic.cu.
 _SEG = 256
 BITONIC_MAX_K = _SEG
+# Segments a warp of kernels C and D sorts at once, each folded into a running
+# top 256 of its own (kGroups in csrc/topk_bitonic.cu).
+_FOLD_GROUPS = 2
 TOPK_VARIANTS = ("roll", "reshape", "natural")
 # log(float64 tiny): the reference's tail-cutoff floor (pyloo psis.py:90)
 _CUTOFF_FLOOR = float(math.log(2.2250738585072014e-308))
@@ -164,6 +173,16 @@ def blocks_per_sm(s: int, k: int, fused: bool = True, device="cuda") -> int:
     n = lib.pyloo_prepass_blocks_per_sm(_cuda_device(device).index, int(fused), s, k)
     if n < 0:
         _raise_on(-n, lib, "occupancy query of the prepass")
+    return n
+
+
+def bitonic_blocks_per_sm(variant: str, device="cuda") -> int:
+    """Resident blocks (of four warps) a SM of kernel C (``"reshape"``) or D
+    (``"natural"``), as built for rows that start on 16-byte boundaries."""
+    lib = _build.load()
+    n = lib.pyloo_bitonic_blocks_per_sm(_cuda_device(device).index, int(variant == "natural"))
+    if n < 0:
+        _raise_on(-n, lib, "occupancy query of the bitonic top-k")
     return n
 
 
@@ -444,6 +463,39 @@ def topk_desc_natural_plain(x: torch.Tensor, k: int) -> torch.Tensor:
     return v[:, 0, :k]
 
 
+def _fold_plain(x: torch.Tensor, k: int, natural: bool) -> torch.Tensor:
+    """The merge order of the CUDA kernels C and D in tensor ops: the row in
+    ``ceil(S / 256)`` segments (the last filled with -inf), segment ``j``
+    folded into the running top 256 of group ``j % _FOLD_GROUPS`` by one
+    max-merge (against the reversed segment for C, against the segment
+    sorted ascending for D) and the half-cleaner, and at the end the groups'
+    survivors merged in pairs, the partner reversed."""
+    b, s = x.shape
+    span = _FOLD_GROUPS * _SEG
+    n_iter = -(-s // span)
+    x = torch.nn.functional.pad(x, (0, n_iter * span - s), value=-math.inf)
+    segs = torch.sort(x.reshape(b, n_iter, _FOLD_GROUPS, _SEG), dim=-1, descending=not natural).values
+    top = torch.full((b, _FOLD_GROUPS, _SEG), -math.inf, dtype=x.dtype, device=x.device)
+    for it in range(n_iter):
+        seg = segs[:, it]
+        top = _bitonic_merge_desc(torch.maximum(top, seg if natural else seg.flip(-1)))
+    while top.shape[1] > 1:
+        top = _bitonic_merge_desc(torch.maximum(top[:, 0::2], top[:, 1::2].flip(-1)))
+    return top[:, 0, :k]
+
+
+def topk_desc_reshape_fold_plain(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Kernel C's scheme in the CUDA kernel's merge order (:func:`_fold_plain`);
+    value for value what :func:`topk_desc_reshape_plain` returns."""
+    return _fold_plain(x, k, natural=False)
+
+
+def topk_desc_natural_fold_plain(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Kernel D's scheme in the CUDA kernel's merge order (:func:`_fold_plain`);
+    value for value what :func:`topk_desc_natural_plain` returns."""
+    return _fold_plain(x, k, natural=True)
+
+
 _TOPK_PLAIN = {
     "roll": topk_desc_plain,
     "reshape": topk_desc_reshape_plain,
@@ -488,7 +540,7 @@ def topk_desc(x: torch.Tensor, k: int, variant: str = "roll") -> torch.Tensor:
     ``variant`` picks the kernel, as in ``pallas_topk_desc``: ``"roll"`` is
     kernel B (radix select, k <= 1024), ``"reshape"`` kernel C and
     ``"natural"`` kernel D (bitonic networks over 256-wide segments, k <=
-    256, S <= 32768: one row in shared memory).  Same input contract as
+    256, S <= 32768).  Same input contract as
     :func:`loo_prepass`; returns ``(B, k)`` descending, bitwise equal to
     ``torch.topk`` as a multiset of values.  Launches are counted in
     ``topk_desc.launches[variant]``.

@@ -38,10 +38,11 @@ import argparse
 import ctypes
 import json
 import re
-import subprocess
 import sys
 import tempfile
 from pathlib import Path
+
+from ._stages import add_shape_arguments, build, card, insert_at, median_ms, rows
 
 STAGES = ("load", "+ radix select", "+ compaction", "+ sort", "+ sums")
 
@@ -70,13 +71,7 @@ def cut_source(text: str, stop: int) -> str:
     """The source cut after stage ``stop`` (5: the source as it is)."""
     if stop >= 5:
         return text
-    pattern, code = _CUTS[stop]
-    out = []
-    for line in text.splitlines():
-        out.append(line)
-        if re.search(pattern, line):
-            out.append(f"  {{ {code} }}")
-    return "\n".join(out) + "\n"
+    return insert_at(text, *_CUTS[stop])
 
 
 def copies(text: str, label: str, swap_row_exp: bool) -> list[tuple[str, int, str]]:
@@ -88,26 +83,6 @@ def copies(text: str, label: str, swap_row_exp: bool) -> list[tuple[str, int, st
         swapped = _ROW_EXP.sub(lambda m: m.group(1) + other + m.group(3), text, count=1)
         out.append((f"{label} row_exp={name}", 5, swapped))
     return out
-
-
-def build(sources: list[str], work: Path) -> list[Path]:
-    """Compile every copy in parallel; returns their shared libraries."""
-    from pyloo_tpu_torch import _build
-
-    libs, procs = [], []
-    for i, text in enumerate(sources):
-        src = work / f"copy{i}.cu"
-        src.write_text(text)
-        lib = work / f"libcopy{i}.so"
-        cmd = [_build._nvcc(), *_build._NVCC_FLAGS, "-shared", str(src), "-o", str(lib)]
-        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                            stderr=subprocess.STDOUT, text=True)))
-        libs.append(lib)
-    for cmd, proc in procs:
-        out = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed:\n{' '.join(cmd)}\n{out}")
-    return libs
 
 
 def entries(path: Path, text: str):
@@ -134,30 +109,6 @@ def entries(path: Path, text: str):
             lambda x, k, outs, ov: call(lib.pyloo_topk_desc_f32, x, k, outs[:1], ov))
 
 
-def median_ms(fn, runs: int = 7) -> float:
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        stop.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(stop))
-    return sorted(times)[len(times) // 2]
-
-
-def rows(kind: str, b: int, s: int):
-    """x = -log_lik rows on the card, from seed 0."""
-    import torch
-
-    z = torch.randn(b, s, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
-    return 1.0 - 0.8 * z if kind == "normal" else 0.7 + 0.01 * z
-
-
 def main() -> int:
     import torch
 
@@ -167,17 +118,13 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     default = Path(__file__).resolve().parent.parent / "csrc" / "topk_prepass.cu"
     parser.add_argument("--source", action="append", help=f"a kernel source (default {default})")
-    parser.add_argument("--rows", type=int, default=131_072)
-    parser.add_argument("--s", type=int, default=4_000)
-    parser.add_argument("--k", type=int, default=191)
-    parser.add_argument("--data", choices=("normal", "concentrated"), default="normal")
+    add_shape_arguments(parser)
     parser.add_argument("--swap-row-exp", action="store_true")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch finds no CUDA device", file=sys.stderr)
         return 1
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
+    smi = card()
     print(smi, flush=True)
     todo = []
     for source in args.source or [str(default)]:

@@ -143,3 +143,108 @@ def test_float32_cutoff_tie_moves_k_as_in_pyloo_tpu():
     assert_allclose(k32, jk32, rtol=0, atol=1e-5)
     assert (np.abs(k32 - k64) > 2e-3).all()
     assert_allclose(e32, e64, rtol=1e-4, atol=1e-4)  # elpd stays in the envelope
+
+
+# Rows whose fitted sigma is not positive.  No input was found on which
+# pyloo_tpu's fit returns one with a finite k (its own tests stub the flag
+# for the same reason: k and b come out with opposite signs by construction,
+# and a b that cancels falls back to the exponential limit; tied and nearly
+# tied tails, a few distinct tail values, outliers up to 100 nats, spreads up
+# to 1000 nats and Student-t rows with 0.5 and 1 degrees of freedom, 512 rows
+# each, raised none).  So both packages' fits are made to report sigma <= 0
+# on the same rows, and everything after the fit is held to pyloo_tpu: the
+# flags, the NaN rows of the float64 scorer, the unsmoothed tail that the
+# float32 scorer keeps.  S = 1777 is used nowhere else, so pyloo_tpu traces
+# its jitted scorers here with the stubbed fit, and the traces are dropped.
+_DEGENERATE_ROWS = (1, 4, 9)
+
+
+def _flip_sigma(monkeypatch, module, signs):
+    """Make both fits of ``module`` report a non-positive sigma on
+    ``_DEGENERATE_ROWS``; ``signs(b)`` is -1 there and +1 elsewhere."""
+    batch, from_y = module._gpdfit_batch, module._gpdfit_from_y
+
+    def hit(like):
+        return signs(like.shape[0])
+
+    def stub_batch(*args, **kwargs):
+        k, sign_sigma, log_sigma = batch(*args, **kwargs)
+        return k, sign_sigma * hit(k), log_sigma
+
+    def stub_from_y(*args, **kwargs):
+        k, sigma = from_y(*args, **kwargs)
+        return k, sigma * hit(k)
+
+    monkeypatch.setattr(module, "_gpdfit_batch", stub_batch)
+    monkeypatch.setattr(module, "_gpdfit_from_y", stub_from_y)
+
+
+def _stub_both_fits(monkeypatch):
+    def np_signs(b):
+        signs = np.ones(b)
+        signs[list(_DEGENERATE_ROWS)] = -1.0
+        return signs
+
+    _flip_sigma(monkeypatch, jk, lambda b: jnp.asarray(np_signs(b)))
+    _flip_sigma(monkeypatch, tk, lambda b: torch.from_numpy(np_signs(b)))
+
+
+def _degenerate_log_lik():
+    rng = np.random.default_rng(11)
+    ll = rng.normal(-1, 0.7, size=(12, 1777))
+    ll[:4] = 2.0 * rng.standard_t(3, size=(4, 1777)) - 1.0
+    return ll
+
+
+@pytest.mark.parametrize("route", ["torch", "cuda"])
+def test_degenerate_rows_float32_keep_the_unsmoothed_tail(monkeypatch, route):
+    import jax
+
+    ll = _degenerate_log_lik().astype(np.float32)
+    m = tail_length(ll.shape[1])
+    clean = tk.loo_scores_psis_fast(torch.from_numpy(ll), m, route=route)
+    _stub_both_fits(monkeypatch)
+    try:
+        want = jk.loo_scores_psis_fast(jnp.asarray(ll), m)
+        got = tk.loo_scores_psis_fast(torch.from_numpy(ll), m, route=route)
+    finally:
+        jax.clear_caches()
+    e, k, lppd, degen = (g.numpy() for g in got)
+    we, wk, wlppd, wdegen = (np.asarray(w) for w in want)
+    rows = list(_DEGENERATE_ROWS)
+    assert wdegen[rows].all() and wdegen.sum() == len(rows)  # pyloo_tpu raises the flag
+    np.testing.assert_array_equal(degen, wdegen)
+    assert_allclose(e, we, rtol=1e-5, atol=1e-5)
+    assert_allclose(lppd, wlppd, rtol=1e-5, atol=1e-5)
+    assert_allclose(k, wk, rtol=0, atol=1e-3)
+    # the flagged rows are finite and unsmoothed: they differ from the clean fit's
+    assert np.isfinite(e[rows]).all()
+    assert (np.abs(e[rows] - clean[0].numpy()[rows]) > 1e-4).all()
+    others = np.setdiff1d(np.arange(len(e)), rows)
+    np.testing.assert_array_equal(e[others], clean[0].numpy()[others])
+
+
+@pytest.mark.parametrize("deep", [False, True], ids=["linear-fit", "deep-tail-guard"])
+def test_degenerate_rows_float64_are_nan_as_in_pyloo_tpu(monkeypatch, deep):
+    import jax
+
+    ll = _degenerate_log_lik()
+    if deep:  # the batch takes the signed-log fit
+        ll[5] = np.random.default_rng(12).standard_t(2, size=ll.shape[1]) * 8.0 - 30.0
+    m = tail_length(ll.shape[1])
+    _stub_both_fits(monkeypatch)
+    try:
+        want = [np.asarray(w) for w in jk.loo_scores_psis(jnp.asarray(ll), m)]
+        want_fast = [np.asarray(w) for w in jk.loo_scores_psis_fast(jnp.asarray(ll), m)]
+    finally:
+        jax.clear_caches()
+    got = [g.numpy() for g in tk.loo_scores_psis(torch.from_numpy(ll), m)]
+    got_fast = [g.numpy() for g in tk.loo_scores_psis_fast(torch.from_numpy(ll), m)]
+    rows = list(_DEGENERATE_ROWS)
+    assert np.isnan(want[0][rows]).all() and np.isnan(want[0]).sum() == len(rows)
+    for g, w in zip(got, want):
+        assert_allclose(g, w, **F64)  # NaN rows included (equal_nan is the default)
+    np.testing.assert_array_equal(got_fast[3], want_fast[3])
+    assert want_fast[3][rows].all()
+    for g, w in zip(got_fast[:3], want_fast[:3]):
+        assert_allclose(g, w, **F64)

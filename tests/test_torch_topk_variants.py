@@ -7,6 +7,10 @@ to ``torch.topk``; both must agree exactly (``torch.equal``).  The CUDA
 kernels are compared with these plain versions and with ``torch.topk`` on
 the card by ``chip_smoke.py``.
 
+The CUDA kernels fold the sorted segments one after another where the TPU
+kernels merge them as a tree; ``topk_desc_*_fold_plain`` follow that order
+and are held bitwise to the tree versions.
+
 The Pallas kernel is run once per (variant, S) at k = 256 and its output cut
 to the first k columns: for every k <= 256 it runs the same 256-list kernel
 and returns exactly that cut (``pallas_topk.py:707`` and ``:753-757``), and
@@ -31,6 +35,11 @@ PLAIN = {
     "reshape": topk.topk_desc_reshape_plain,
     "natural": topk.topk_desc_natural_plain,
 }
+# the same schemes in the CUDA kernels' merge order
+FOLD = {
+    "reshape": topk.topk_desc_reshape_fold_plain,
+    "natural": topk.topk_desc_natural_fold_plain,
+}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -51,9 +60,9 @@ def _rows(s):
     x[1, ::7] = -np.inf  # -inf entries, not the whole row
     x[2] = 2.0 * rng.standard_t(3, size=s) - 1.0  # heavy tail
     for r, k in enumerate(KS, start=4):
-        keep = rng.choice(s, size=k, replace=False)
+        keep = rng.choice(s, size=min(k, s), replace=False)
         x[r] = -np.inf
-        x[r, keep] = rng.normal(size=k)
+        x[r, keep] = rng.normal(size=keep.size)
     return x.astype(np.float32)
 
 
@@ -82,6 +91,48 @@ def test_plain_matches_torch_topk_across_segment_counts(variant):
         x = torch.from_numpy(rng.normal(size=(3, s)).astype(np.float32))
         k = min(s, 256)
         assert torch.equal(PLAIN[variant](x, k), torch.topk(x, k, dim=1).values), s
+
+
+# (S, k): less than one segment, one ragged segment, one value past a power
+# of two of segments; k = 1 and the largest k
+ODD_SHAPES = [(255, 1), (255, 255), (300, 1), (300, 256), (16_385, 1), (16_385, 256)]
+
+
+@pytest.mark.parametrize("s,k", ODD_SHAPES)
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_topk_desc_ragged_and_odd_shapes(variant, s, k):
+    x = torch.from_numpy(_rows(s))
+    got = topk.topk_desc(x, k, variant=variant)
+    assert got.shape == (x.shape[0], k)
+    assert torch.equal(got, torch.topk(x, k, dim=1).values)
+    if s <= 16_384:  # the Pallas kernels' cap: 64 segments
+        width = min(s, 256)
+        want = pallas_topk_desc(jnp.asarray(_rows(s)), width, variant=variant, interpret=True)
+        assert torch.equal(got, torch.from_numpy(np.array(want))[:, :k])
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_topk_desc_on_a_strided_view(variant):
+    # rows at an odd column offset, the row stride larger than S
+    base = np.full((8, 1100), np.inf, np.float32)
+    base[:, 3:1003] = _rows(1000)
+    x = torch.from_numpy(base)[:, 3:1003]
+    assert x.stride() == (1100, 1) and x.storage_offset() == 3
+    got = topk.topk_desc(x, 191, variant=variant)
+    assert torch.equal(got, torch.topk(x, 191, dim=1).values)
+    assert torch.equal(got, _pallas(variant, 1000)[:, :191])
+
+
+@pytest.mark.parametrize("s", [255, 300, 1000, 4000, 16_385])
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_fold_order_plain_equals_the_tree_version(variant, s):
+    x = torch.from_numpy(_rows(s))
+    for k in (1, 191, min(s, 256)):
+        got = FOLD[variant](x, k)
+        assert torch.equal(got, PLAIN[variant](x, k))
+        assert torch.equal(got, torch.topk(x, k, dim=1).values)
+    view = torch.from_numpy(np.pad(_rows(s), ((0, 0), (5, 7))))[:, 5 : 5 + s]
+    assert torch.equal(FOLD[variant](view, 17), PLAIN[variant](x, 17))
 
 
 @pytest.mark.parametrize("variant", ["roll", *VARIANTS])
