@@ -461,7 +461,9 @@ def obs_major(ll_host, n_rows: int, start: int = 0):
 
 
 def run_loo(pl, idata, timed: dict):
-    """``pl.loo`` with its scoring part (apply_rowwise) timed on the side."""
+    """``pl.loo`` with its ingest (from the call to the scorer's start: the
+    sample matrix laid out and copied to the card) and its scoring part
+    (apply_rowwise) timed on the side."""
     import torch
 
     loo_mod = sys.modules["pyloo_tpu_torch.loo"]  # the package's `loo` is the function
@@ -470,6 +472,7 @@ def run_loo(pl, idata, timed: dict):
     def timed_apply(*args, **kwargs):
         torch.cuda.synchronize()
         t = time.perf_counter()
+        timed["ingest_s"] = t - timed["start"]
         out = real(*args, **kwargs)
         torch.cuda.synchronize()
         timed["scoring_s"] = time.perf_counter() - t
@@ -478,10 +481,10 @@ def run_loo(pl, idata, timed: dict):
     loo_mod.apply_rowwise = timed_apply
     try:
         torch.cuda.reset_peak_memory_stats()
-        t = time.perf_counter()
+        timed["start"] = time.perf_counter()
         res = pl.loo(idata, pointwise=True)
         torch.cuda.synchronize()
-        timed["wall_s"] = time.perf_counter() - t
+        timed["wall_s"] = time.perf_counter() - timed["start"]
         timed["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     finally:
         loo_mod.apply_rowwise = real
@@ -522,8 +525,8 @@ def phase_main_path(pl, kernels: dict):
     check(loo_i.shape == (n_obs,) and np.isfinite(loo_i).all() and np.isfinite(khat).all(),
           f"loo_i, pareto_k finite, shape {loo_i.shape}; elpd_loo {res['elpd_loo']:.6f},"
           f" {res.fast_path_degenerate} degenerate rows")
-    print(f"  time  loo() {timed['wall_s']:.3f} s wall, scoring {timed['scoring_s']:.3f} s,"
-          f" {n_obs / timed['wall_s']:.0f} obs/s; peak device memory"
+    print(f"  time  loo() {timed['wall_s']:.3f} s wall, ingest {timed['ingest_s']:.3f} s, scoring"
+          f" {timed['scoring_s']:.3f} s, {n_obs / timed['wall_s']:.0f} obs/s; peak device memory"
           f" {timed['peak_gb']:.2f} GB", flush=True)
     print(f"  rows  kernel A narrowed {n_over} of {n_obs} rows ({100 * n_over / n_obs:.2f}%) by a"
           f" further digit", flush=True)

@@ -6,7 +6,9 @@ shared library with a plain C interface, loaded with :mod:`ctypes`.  The
 build happens at the first kernel launch (never at import), from the
 package's own sources, into ``build/pyloo_tpu_torch/`` beside the package.
 The library name carries a hash of the sources, so an edited source is
-rebuilt and a stale library is never loaded.
+rebuilt and a stale library is never loaded.  ``nvcc``'s output of that
+build is kept beside the library, so ``build_log`` reads the same whether
+this process compiled the library or found it there.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ _NVCC_FLAGS = (
 _VOID_P = ctypes.c_void_p
 _INT = ctypes.c_int
 _lib: ctypes.CDLL | None = None
-build_log: str = ""  # nvcc's output of the last build (ptxas register/smem use)
+build_log: str = ""  # nvcc's output of the library's build (ptxas register/smem use)
 
 
 def _nvcc() -> str:
@@ -58,7 +60,9 @@ def build() -> Path:
         digest.update(src.read_bytes())
     digest.update(" ".join(_NVCC_FLAGS).encode())
     lib_path = BUILD_DIR / f"libpyloo_kernels_{digest.hexdigest()[:16]}.so"
-    if lib_path.exists():
+    log_path = lib_path.with_suffix(".log")
+    if lib_path.exists() and log_path.exists():
+        build_log = log_path.read_text()
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
@@ -84,6 +88,9 @@ def build() -> Path:
             raise RuntimeError(
                 f"nvcc failed (exit {proc.returncode}):\n{' '.join(link)}\n{proc.stdout}{proc.stderr}"
             )
+        tmp_log = work / log_path.name
+        tmp_log.write_text(build_log)
+        os.replace(tmp_log, log_path)  # the log first: a library in place has its log
         os.replace(tmp, lib_path)  # atomic: a concurrent loader never sees half a file
     finally:
         shutil.rmtree(work, ignore_errors=True)

@@ -13,6 +13,9 @@
 //     (pallas_topk.py:606), variant "natural".  The two lists of a merge are
 //     sorted in opposite directions, so the merge is an elementwise
 //     max(A_i, B_i) with no reversal, followed by the same half-cleaner.
+//     One merge a row is the exception: at the row's end the two half-warps'
+//     survivors are both descending, and D merges them as C does, by the
+//     reversed max-merge.
 // Exactness: every top-256 element of the row is a top-256 element of its
 // own segment, and a max-merge of exact top-256 lists is exact.  Only values
 // move (every step keeps the larger and the smaller of two values, and the
@@ -61,32 +64,23 @@
 //     instruction.  Between two steps each value is multiplied by +-1 (the
 //     next step's lane bit against this one's): exact, and on the pipe that
 //     min and max do not use.
-// PYLOO_BITONIC_REGS builds the other layouts that were measured: 8 (32
-// lanes x 8 registers, one segment a warp, 15 shuffle stages) and 32 (8
-// lanes x 32 registers, four segments a warp, 6 shuffle stages, few warps
-// resident).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 #include <cstdint>
 
-#ifndef PYLOO_BITONIC_REGS
-#define PYLOO_BITONIC_REGS 16
-#endif
-
 namespace {
 
 constexpr int kSeg = 256;  // segment width: the TPU kernels' list height
 constexpr int kMaxS = 32768;
 constexpr int kMaxK = kSeg;
-constexpr int kRegs = PYLOO_BITONIC_REGS;  // values of a segment in one lane
+constexpr int kRegs = 16;                 // values of a segment in one lane
 constexpr int kLanes = kSeg / kRegs;       // lanes that hold one segment
 constexpr int kGroups = 32 / kLanes;       // segments a warp sorts at once
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr unsigned kFullMask = 0xffffffffu;
-static_assert(kRegs == 8 || kRegs == 16 || kRegs == 32, "a segment is 32 x 8, 16 x 16 or 8 x 32");
 
 // Two registers of one lane: the larger into a (kMaxFirst) or into b.
 template <bool kMaxFirst>

@@ -70,7 +70,7 @@ MAX_K = 1024
 _SEG = 256
 BITONIC_MAX_K = _SEG
 # Segments a warp of kernels C and D sorts at once, each folded into a running
-# top 256 of its own (kGroups in csrc/topk_bitonic.cu).
+# top 256 of its own.  Must equal kGroups in csrc/topk_bitonic.cu.
 _FOLD_GROUPS = 2
 TOPK_VARIANTS = ("roll", "reshape", "natural")
 # log(float64 tiny): the reference's tail-cutoff floor (pyloo psis.py:90)

@@ -22,10 +22,9 @@ def insert_at(text: str, pattern: str, code: str, before: bool = False) -> str:
     return "\n".join(out) + "\n"
 
 
-def build(sources: list[str], work: Path, flags: list[tuple] | None = None) -> list[Path]:
+def build(sources: list[str], work: Path) -> list[Path]:
     """Compile every copy in parallel (one ``nvcc`` a copy, all started
-    together), copy i with the further ``flags[i]``; returns their shared
-    libraries."""
+    together); returns their shared libraries."""
     from pyloo_tpu_torch import _build
 
     libs, procs = [], []
@@ -33,8 +32,7 @@ def build(sources: list[str], work: Path, flags: list[tuple] | None = None) -> l
         src = work / f"copy{i}.cu"
         src.write_text(text)
         lib = work / f"libcopy{i}.so"
-        cmd = [_build._nvcc(), *_build._NVCC_FLAGS, *(flags[i] if flags else ()),
-               "-shared", str(src), "-o", str(lib)]
+        cmd = [_build._nvcc(), *_build._NVCC_FLAGS, "-shared", str(src), "-o", str(lib)]
         procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT, text=True)))
         libs.append(lib)
@@ -75,46 +73,6 @@ def card() -> str:
     """The card's name and power limit, as ``nvidia-smi`` prints them."""
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
-
-
-def sass_counts(lib: Path, kernel: str) -> dict:
-    """Instructions of the kernels of ``lib`` whose name holds ``kernel``, by
-    opcode, as ``cuobjdump -sass`` lists them: ``{name: {"total": n,
-    "loop": n, "opcodes": {opcode: n}}}``.  Only the path the warps take
-    together is counted (what precedes the first WARPSYNC: the compiler
-    appends a copy of every shuffle for diverged warps after the code).
-    ``loop`` and ``opcodes`` are of the innermost largest loop (the largest
-    backward branch that lies inside another), the body a segment or a row
-    runs through; of the whole path when there is no such loop."""
-    text = subprocess.run(["cuobjdump", "-sass", str(lib)], capture_output=True, text=True,
-                          check=True).stdout
-    kernels, name = {}, None
-    for line in text.splitlines():
-        found = re.search(r"Function : (\S+)", line)
-        if found:
-            name = found.group(1) if kernel in found.group(1) else None
-            if name:
-                kernels[name] = []
-            continue
-        found = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
-        if found and name:
-            kernels[name].append((int(found.group(1), 16), found.group(2).strip()))
-    out = {}
-    for name, listing in kernels.items():
-        end = next((i for i, (_, ins) in enumerate(listing) if "WARPSYNC" in ins), len(listing))
-        path = listing[:end]
-        loops = []
-        for addr, ins in path:
-            found = re.search(r"\bBRA (0x[0-9a-f]+)", ins)
-            if found and int(found.group(1), 16) < addr:
-                loops.append((int(found.group(1), 16), addr))
-        inner = [(lo, hi) for lo, hi in loops if any(a <= lo and hi < b for a, b in loops)]
-        lo, hi = max(inner, key=lambda r: r[1] - r[0]) if inner else (0, path[-1][0])
-        body = [re.sub(r"^@!?U?P\d\s+", "", ins).split()[0].split(".")[0]
-                for addr, ins in path if lo <= addr <= hi]
-        opcodes = {op: body.count(op) for op in sorted(set(body), key=body.count, reverse=True)}
-        out[name] = {"total": len(path), "loop": len(body), "opcodes": opcodes}
-    return out
 
 
 def add_shape_arguments(parser) -> None:

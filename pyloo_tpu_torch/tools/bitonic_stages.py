@@ -16,13 +16,11 @@ The cuts go at the source's ``// cut N`` markers; the block-per-row kernel,
 which has none, is cut at its phase comments.  A cut copy writes one value
 that depends on the work before the cut, so the compiler keeps that work.
 Each whole copy is held bitwise to ``torch.topk`` on the same rows.
-``--define NAME=VALUE[,NAME=VALUE...]`` builds one more whole copy of each
-source with those macros set (a source may keep a design choice behind one).
 ``--sass`` counts the instructions of each whole copy's segment loop by
 opcode, from ``cuobjdump -sass`` (a loop pass sorts and merges one segment
-for each group of lanes that holds one: two with 16 registers a lane).  The copies are
-built with ``nvcc``, one process per copy, all started together, under
-``build/pyloo_tpu_torch/``.  On a machine with a CUDA card, from the root of
+for each group of lanes that holds one: two with 16 registers a lane).  The
+copies are built with ``nvcc``, one process per copy, all started together,
+under ``build/pyloo_tpu_torch/``.  On a machine with a CUDA card, from the root of
 the repository::
 
     python3 -m pyloo_tpu_torch.tools.bitonic_stages
@@ -39,11 +37,12 @@ import argparse
 import ctypes
 import json
 import re
+import subprocess
 import sys
 import tempfile
 from pathlib import Path
 
-from ._stages import add_shape_arguments, build, card, insert_at, median_ms, rows, sass_counts
+from ._stages import add_shape_arguments, build, card, insert_at, median_ms, rows
 
 STAGES = ("load", "+ segment sort", "+ merge rounds", "+ write")
 
@@ -88,6 +87,46 @@ def cut_source(text: str, stop: int) -> str:
     return text
 
 
+def sass_counts(lib: Path, kernel: str) -> dict:
+    """Instructions of the kernels of ``lib`` whose name holds ``kernel``, by
+    opcode, as ``cuobjdump -sass`` lists them: ``{name: {"total": n,
+    "loop": n, "opcodes": {opcode: n}}}``.  Only the path the warps take
+    together is counted (what precedes the first WARPSYNC: the compiler
+    appends a copy of every shuffle for diverged warps after the code).
+    ``loop`` and ``opcodes`` are of the innermost largest loop (the largest
+    backward branch that lies inside another), the body a segment or a row
+    runs through; of the whole path when there is no such loop."""
+    text = subprocess.run(["cuobjdump", "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    kernels, name = {}, None
+    for line in text.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            name = found.group(1) if kernel in found.group(1) else None
+            if name:
+                kernels[name] = []
+            continue
+        found = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if found and name:
+            kernels[name].append((int(found.group(1), 16), found.group(2).strip()))
+    out = {}
+    for name, listing in kernels.items():
+        end = next((i for i, (_, ins) in enumerate(listing) if "WARPSYNC" in ins), len(listing))
+        path = listing[:end]
+        loops = []
+        for addr, ins in path:
+            found = re.search(r"\bBRA (0x[0-9a-f]+)", ins)
+            if found and int(found.group(1), 16) < addr:
+                loops.append((int(found.group(1), 16), addr))
+        inner = [(lo, hi) for lo, hi in loops if any(a <= lo and hi < b for a, b in loops)]
+        lo, hi = max(inner, key=lambda r: r[1] - r[0]) if inner else (0, path[-1][0])
+        body = [re.sub(r"^@!?U?P\d\s+", "", ins).split()[0].split(".")[0]
+                for addr, ins in path if lo <= addr <= hi]
+        opcodes = {op: body.count(op) for op in sorted(set(body), key=body.count, reverse=True)}
+        out[name] = {"total": len(path), "loop": len(body), "opcodes": opcodes}
+    return out
+
+
 def entries(path: Path):
     """(kernel C, kernel D) as callables ``f(x, k, vals)``."""
     import torch
@@ -118,9 +157,6 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     default = Path(__file__).resolve().parent.parent / "csrc" / "topk_bitonic.cu"
     parser.add_argument("--source", action="append", help=f"a kernel source (default {default})")
-    parser.add_argument("--define", action="append", default=[],
-                        help="NAME=VALUE[,NAME=VALUE...]: one more whole copy of each source"
-                             " with these macros set")
     parser.add_argument("--sass", action="store_true",
                         help="count the instructions of each whole copy's segment loop, by opcode")
     add_shape_arguments(parser)
@@ -130,22 +166,20 @@ def main() -> int:
         return 1
     smi = card()
     print(smi, flush=True)
-    todo = []  # (label, stage, source text, nvcc flags)
+    todo = []  # (label, stage, source text)
     for source in args.source or [str(default)]:
         text = Path(source).read_text()
         stops = range(1, 5) if cuts_of(text) else [4]
-        todo += [(source, stop, cut_source(text, stop), ()) for stop in stops]
-        todo += [(f"{source} -D{d}", 4, text, tuple(f"-D{m}" for m in d.split(",")))
-                 for d in args.define]
+        todo += [(source, stop, cut_source(text, stop)) for stop in stops]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     b, s, k = args.rows, args.s, args.k
     result = {"card": smi, "shape": [b, s, k], "data": args.data, "copies": []}
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        libs = build([cut for _, _, cut, _ in todo], Path(tmp), [flags for *_, flags in todo])
+        libs = build([cut for _, _, cut in todo], Path(tmp))
         x = rows(args.data, b, s)
         want = torch.topk(x, k, dim=1).values
         vals = torch.empty((b, k), device="cuda")
-        for (label, stop, _, _), path in zip(todo, libs):
+        for (label, stop, _), path in zip(todo, libs):
             kern_c, kern_d = entries(path)
             got = {"source": label, "stage": STAGES[stop - 1],
                    "C_ms": median_ms(lambda: kern_c(x, k, vals)),
