@@ -34,7 +34,17 @@ Phases:
 5. ``loo_streaming`` in float32 at 1,000,000 x 4,000 with the model on the
    card (the log-likelihood made chunk by chunk), held to phase 2's ``loo()``;
 5b. ``loo_streaming`` over the first 250,000 rows of the phase-2 matrix, held
-   to ``loo()`` on the same rows in float32 and float64.
+   to ``loo()`` on the same rows in float32 and float64;
+6. the importance-weights path through its public entry points, on the first
+   262,144 rows of the phase-2 matrix in float32: ``psislw`` held to phase 2's
+   ``loo()`` (k, and ``logsumexp(lw + ll)`` against ``loo_i``),
+   ``psislw_compact`` held to ``psislw``, 4,096 rows and a block of tied rows
+   in float64 against the same call on the CPU, ``waic`` at 1,000,000 x 4,000,
+   ``loo_i``, ``e_loo``, ``mcse_loo``, ``psis_ess_values`` and ``loo_group``,
+   each held to a number the run already has or to the CPU on a 4,096-row
+   cut; the wall time and peak device memory of each call, both ways of
+   ordering ties in ``topk_with_idx``, and the kernels' launches (this path
+   selects with indices, through ``torch.topk``).
 
 Every main path runs with the kernels' launch counters set to 0 just before
 it and read just after; comparisons with the plain versions run outside
@@ -759,6 +769,252 @@ def phase_streaming(pl, ll_host, model, reff: float, res32, res64) -> None:
         del src, out
 
 
+
+def timed_call(what: str, fn, timings: dict):
+    """``fn()`` with its wall time (a host clock around a call that ends
+    synchronised) and its peak device memory, printed and kept."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    timings[what] = {"wall_s": wall, "peak_gb": peak}
+    print(f"  time  {what}: {wall:.3f} s wall, peak device memory {peak:.2f} GB", flush=True)
+    return out
+
+
+def card_rows(fn, *host_arrays, chunk: int = 65_536):
+    """``fn`` over row chunks of host arrays copied to the card; per-row results on the host."""
+    import torch
+
+    outs = []
+    for start in range(0, host_arrays[0].shape[0], chunk):
+        blocks = [torch.from_numpy(a[start : start + chunk]).cuda() for a in host_arrays]
+        outs.append(fn(*blocks).cpu())
+    return torch.cat(outs).numpy()
+
+
+def on_cpu(pl, fn):
+    """``fn()`` with ``rcParams["device.device"] = "cpu"``."""
+    pl.rcParams["device.device"] = "cpu"
+    try:
+        return fn()
+    finally:
+        pl.rcParams["device.device"] = "cuda"
+
+
+def phase_weights(pl, ll_host, beta, res32, smi: str, n_rows: int = 262_144,
+                  n_cut: int = 4_096) -> None:
+    import numpy as np
+    import torch
+
+    from pyloo_tpu_torch._common import compute_reff
+    from pyloo_tpu_torch.ops.psis import tail_length
+    from pyloo_tpu_torch.ops.selection import topk_with_idx
+
+    n_obs, s = ll_host.shape[2], ll_host.shape[0] * ll_host.shape[1]
+    print(f"phase 6: the importance-weights path at {n_rows} x {s} float32 ({smi})", flush=True)
+    pl.rcParams["device.device"] = "cuda"
+    pl.rcParams["device.precision"] = "float32"
+    idata_all = pl.from_dict(posterior={"beta": beta}, log_likelihood={"y": ll_host})
+    reff = compute_reff(idata_all, None, s)
+    m_tail = tail_length(s, reff)
+    ll_rows = obs_major(ll_host, n_rows).cpu().numpy()  # (n_rows, S), as loo() lays it out
+    neg = -ll_rows
+    loo_i32, k32 = res32.loo_i.values[:n_rows], res32.pareto_k.values[:n_rows]
+    timings: dict = {}
+    lse = lambda a: torch.logsumexp(a, dim=1)  # noqa: E731
+
+    zero_counts()
+
+    # psislw against loo(): the float32 envelope of phase 3 (k 2e-3, elpd rtol/atol 1e-4)
+    lw, k = timed_call("psislw", lambda: pl.psislw(neg, reff=reff), timings)
+    elpd = card_rows(lambda a, b: lse(a + b), lw, ll_rows)
+    sums = card_rows(lambda a: lse(a).exp(), lw)
+    bad_k = int((~(np.abs(k - k32) <= 2e-3)).sum())
+    bad_e = int((~np.isclose(elpd, loo_i32, rtol=1e-4, atol=1e-4)).sum())
+    check(lw.shape == (n_rows, s) and lw.dtype == np.float32 and bad_k == 0 and bad_e == 0,
+          f"psislw against loo(): {bad_k} rows with |d k| > 2e-3 (max"
+          f" {np.nanmax(np.abs(k - k32)):.3g}), {bad_e} rows with logsumexp(lw + ll) outside"
+          f" rtol/atol 1e-4 of loo_i (max |d| {np.nanmax(np.abs(elpd - loo_i32)):.3g})")
+    check(bool((np.abs(sums - 1.0) <= 1e-5).all()),
+          f"every row's weights sum to 1 within 1e-5 (max |sum - 1| {np.abs(sums - 1.0).max():.3g})")
+
+    # the compact form against the dense one
+    compact = timed_call("psislw_compact", lambda: pl.psislw_compact(neg, reff=reff), timings)
+    dense = timed_call("CompactWeights.densify", lambda: compact.densify(neg), timings)
+    d_dense = card_rows(lambda a, b: (a - b).abs().amax(dim=1), dense, lw)
+    close = card_rows(lambda a, b: torch.isclose(a, b, rtol=1e-5, atol=1e-5).all(dim=1), dense, lw)
+    check(bool(close.all()) and np.array_equal(compact.pareto_k, k, equal_nan=True),
+          f"densify against psislw within rtol/atol 1e-5 (max |d| {d_dense.max():.3g}); k identical")
+    del dense
+    h = np.exp(ll_rows)  # the likelihood: its LOO expectation is exp(loo_i)
+    mean_c = timed_call("CompactWeights.weighted_mean", lambda: compact.weighted_mean(h, neg),
+                        timings)
+    h_da = pl.DataArray(h, ("obs", "__sample__"))
+    lw_da = pl.DataArray(lw, ("obs", "__sample__"))
+    mean = timed_call("e_loo mean",
+                      lambda: pl.e_loo(h_da, log_weights=lw_da, type="mean"), timings)
+    check(np.allclose(mean_c, mean.value.values, rtol=1e-4, atol=1e-7)
+          and np.allclose(mean.value.values, np.exp(loo_i32), rtol=2e-4, atol=1e-7),
+          f"weighted_mean(h) against e_loo(mean) with the dense weights (rtol 1e-4, max rel"
+          f" {np.abs(mean_c / mean.value.values - 1).max():.3g}); e_loo(mean) of the likelihood"
+          f" against exp(loo_i) of loo() (rtol 2e-4, max rel"
+          f" {np.abs(mean.value.values / np.exp(loo_i32) - 1).max():.3g})")
+    del compact
+
+    # e_loo variance and quantile: against the CPU on the first 4,096 rows
+    cut = lambda a: a[:n_cut]  # noqa: E731
+    h_cut = pl.DataArray(cut(h), ("obs", "__sample__"))
+    lw_cut = pl.DataArray(cut(lw), ("obs", "__sample__"))
+    probs = [0.05, 0.5, 0.95]
+    var = timed_call("e_loo variance",
+                     lambda: pl.e_loo(h_da, log_weights=lw_da, type="variance"), timings)
+    qua = timed_call("e_loo quantile (3 probabilities)",
+                     lambda: pl.e_loo(h_da, log_weights=lw_da, type="quantile", probs=probs),
+                     timings)
+    var_cpu = on_cpu(pl, lambda: pl.e_loo(h_cut, log_weights=lw_cut, type="variance"))
+    qua_cpu = on_cpu(pl, lambda: pl.e_loo(h_cut, log_weights=lw_cut, type="quantile",
+                                          probs=probs))
+    q = qua.value.values
+    check(np.allclose(cut(var.value.values), var_cpu.value.values, rtol=1e-3, atol=1e-6)
+          and np.allclose(cut(var.pareto_k.values), var_cpu.pareto_k.values, atol=2e-3),
+          f"e_loo(variance) against the CPU on {n_cut} rows (rtol 1e-3, atol 1e-6; k atol 2e-3: max |d k|"
+          f" {np.abs(cut(var.pareto_k.values) - var_cpu.pareto_k.values).max():.3g})")
+    check(q.shape == (n_rows, 3) and bool((np.diff(q, axis=1) >= 0).all())
+          and np.allclose(cut(q), qua_cpu.value.values, rtol=1e-4, atol=1e-7),
+          f"e_loo(quantile) {q.shape}, ordered in the probabilities, against the CPU on {n_cut}"
+          f" rows (rtol 1e-4; max rel {np.abs(cut(q) / qua_cpu.value.values - 1).max():.3g})")
+    del h, h_da, lw_da, var, qua, mean
+
+    # the readers that smooth the weights themselves, on the same rows
+    ll_cut_host = np.ascontiguousarray(ll_host[:, :, :n_rows])
+    idata = pl.from_dict(posterior={"beta": beta}, log_likelihood={"y": ll_cut_host})
+    small = pl.from_dict(posterior={"beta": beta},
+                         log_likelihood={"y": np.ascontiguousarray(ll_host[:, :, :n_cut])})
+    ess = timed_call("psis_ess_values", lambda: pl.psis_ess_values(idata), timings)
+    ess_lw = card_rows(lambda a: 1.0 / (2.0 * a).exp().sum(dim=1), lw)
+    check(np.allclose(ess, ess_lw, rtol=1e-4),
+          f"psis_ess_values against 1 / sum(exp(2 lw)) of psislw's weights (rtol 1e-4, max rel"
+          f" {np.abs(ess / ess_lw - 1).max():.3g}; ESS {ess.min():.0f} to {ess.max():.0f})")
+    mcse = timed_call("mcse_loo (pointwise)", lambda: pl.mcse_loo(idata, pointwise=True), timings)
+    mcse_cpu = on_cpu(pl, lambda: pl.mcse_loo(small, pointwise=True))
+    check(np.array_equal(np.isnan(mcse), (k > 0.7) | np.isnan(k))
+          and np.allclose(cut(mcse), mcse_cpu, rtol=1e-3, atol=1e-7, equal_nan=True),
+          f"mcse_loo: NaN exactly where k > 0.7 ({int(np.isnan(mcse).sum())} rows); against the"
+          f" CPU on {n_cut} rows (rtol 1e-3; total {np.sqrt(np.nansum(mcse ** 2)):.4f})")
+
+    groups = np.arange(n_rows) % 1_000
+    logo = timed_call("loo_group (1,000 groups)",
+                      lambda: pl.loo_group(idata, groups, pointwise=True), timings)
+    logo_small = pl.loo_group(small, groups[:n_cut] % 16, pointwise=True)
+    logo_cpu = on_cpu(pl, lambda: pl.loo_group(small, groups[:n_cut] % 16, pointwise=True))
+    check(logo["n_groups"] == 1_000 and np.isfinite(logo.logo_i.values).all()
+          and np.allclose(logo_small.logo_i.values, logo_cpu.logo_i.values, rtol=1e-4)
+          and np.allclose(logo_small.pareto_k, logo_cpu.pareto_k, atol=5e-3),
+          f"loo_group: 1,000 finite logo_i, elpd_logo {logo['elpd_logo']:.2f}; 16 groups of the"
+          f" first {n_cut} rows against the CPU (logo_i rtol 1e-4, k atol 5e-3: max |d k|"
+          f" {np.abs(logo_small.pareto_k - logo_cpu.pareto_k).max():.3g})")
+    del idata, ll_cut_host
+
+    # waic over the whole matrix: its lppd is loo()'s
+    waic = timed_call(f"waic ({n_obs} x {s})", lambda: pl.waic(idata_all, pointwise=True),
+                      timings)
+    lppd_waic = waic["elpd_waic"] + waic["p_waic"]
+    lppd_loo = res32["elpd_loo"] + res32["p_loo"]
+    waic_small = pl.waic(small, pointwise=True)
+    waic_cpu = on_cpu(pl, lambda: pl.waic(small, pointwise=True))
+    check(np.isfinite(waic.waic_i.values).all() and abs(lppd_waic / lppd_loo - 1) <= 1e-5
+          and np.allclose(waic_small.waic_i.values, waic_cpu.waic_i.values, rtol=1e-5, atol=1e-5),
+          f"waic: elpd_waic {waic['elpd_waic']:.3f}, p_waic {waic['p_waic']:.3f}; its lppd against"
+          f" loo()'s (rel {abs(lppd_waic / lppd_loo - 1):.3g}, 1e-5); waic_i against the CPU on"
+          f" {n_cut} rows (rtol/atol 1e-5)")
+
+    for i in (0, n_rows // 2 - 1, n_obs - 1):
+        one = timed_call(f"loo_i({i})", lambda: pl.loo_i(i, idata_all, pointwise=True), timings)
+        d_e = abs(one["elpd_loo"] - res32.loo_i.values[i])
+        d_k = abs(one["pareto_k"][0] - res32.pareto_k.values[i])
+        check(d_e <= 1e-4 * (1 + abs(one["elpd_loo"])) and d_k <= 2e-3,
+              f"loo_i({i}) against row {i} of loo(): |d elpd| {d_e:.3g} (rtol/atol 1e-4),"
+              f" |d k| {d_k:.3g} (2e-3)")
+    del idata_all
+
+    got = read_counts()
+    print(f"  count launches of the kernels in phase 6: A {got['A']}, B {got['B']}, C {got['C']},"
+          f" D {got['D']} (this path selects with indices: torch.topk; loo_group's exact scorer"
+          f" selects values, in float32 through kernel B)", flush=True)
+
+    # float64 on the card against the CPU: 4,096 rows and 512 rows with ties
+    pl.rcParams["device.precision"] = "float64"
+    rows64 = neg[:n_cut].astype(np.float64)
+    rows64 = np.concatenate([rows64, np.round(rows64[:512], 2)])
+    lw_card, k_card = timed_call(f"psislw float64 ({rows64.shape[0]} rows)",
+                                 lambda: pl.psislw(rows64, reff=reff), timings)
+    t = time.perf_counter()
+    lw_cpu, k_cpu = on_cpu(pl, lambda: pl.psislw(rows64, reff=reff))
+    print(f"  time  the same call on the CPU: {time.perf_counter() - t:.3f} s", flush=True)
+    n_ties = int((np.diff(np.sort(rows64[n_cut:], axis=1), axis=1) == 0).sum(axis=1).min())
+    check(np.allclose(lw_card, lw_cpu, rtol=1e-10, atol=1e-10)
+          and np.allclose(k_card, k_cpu, rtol=1e-10, atol=1e-10),
+          f"float64 psislw on the card against the CPU within 1e-10: max |d lw|"
+          f" {np.abs(lw_card - lw_cpu).max():.3g}, max |d k| {np.abs(k_card - k_cpu).max():.3g}"
+          f" (the last 512 rows rounded to 2 decimals: at least {n_ties} tied pairs a row)")
+    pl.rcParams["device.precision"] = "float32"
+
+    # where psislw's wall goes: the copy in, the device work, the copy out
+    from pyloo_tpu_torch.base import _WEIGHTS_EXTRA_BUFFERS, as_sample_matrix
+    from pyloo_tpu_torch.ops.psis import _select_tail, _smoothed_tail_desc, psislw_batch
+    from pyloo_tpu_torch.parallel import apply_rowwise
+
+    matrix = timed_call("psislw, its parts: as_sample_matrix (the copy in)",
+                        lambda: as_sample_matrix(neg), timings)
+    on_card = timed_call(
+        "psislw, its parts: apply_rowwise(psislw_batch) (the device work)",
+        lambda: apply_rowwise(lambda b: psislw_batch(b, m_tail), matrix,
+                              extra_buffers=_WEIGHTS_EXTRA_BUFFERS), timings)
+    timed_call("psislw, its parts: the weights' copy to the host",
+               lambda: on_card[0].cpu().numpy(), timings)
+    del on_card
+    x = matrix[:65_536] - matrix[:65_536].amax(dim=1, keepdim=True)
+    vals, _, xcutoff = _select_tail(x, m_tail)
+    stage = {
+        "psislw_batch": median_ms(lambda: psislw_batch(matrix[:65_536], m_tail), 3),
+        "its fit and smoothing (_smoothed_tail_desc)": median_ms(
+            lambda: _smoothed_tail_desc(vals[:, :m_tail], xcutoff, m_tail), 3),
+    }
+    print(f"  time  one chunk of {x.shape[0]} rows: "
+          + ", ".join(f"{name} {t:.3f} ms" for name, t in stage.items()), flush=True)
+    del matrix, vals
+
+    # the two ways of ordering ties, at one chunk of psislw's and at wider rows
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    shapes = [("psislw's chunk", x, m_tail + 1)]
+    for rows, width in ((16_384, 16_000), (4_096, 32_768)):
+        shapes.append(("normal rows", torch.randn(rows, width, device="cuda", generator=gen),
+                       tail_length(width) + 1))
+    shapes.append(("float64", x[:32_768].double(), m_tail + 1))
+    del x
+    for what, x, k in shapes:
+        by = {variant: topk_with_idx(x, k, variant=variant) for variant in ("topk", "sort")}
+        strict = by["sort"][0] > by["sort"][0][:, -1:]
+        check(torch.equal(by["topk"][0], by["sort"][0])
+              and torch.equal(by["topk"][1][strict], by["sort"][1][strict]),
+              f"topk_with_idx {tuple(x.shape)} k={k}, {what}: both tie orders give the same"
+              f" values, and the same indices above the k-th value")
+        del by, strict
+        ms = {name: median_ms(lambda: topk_with_idx(x, k, variant=variant))
+              for name, variant in (("topk", "topk"), ("sort", "sort"), ("topk again", "topk"))}
+        ms["torch.topk alone"] = median_ms(lambda: torch.topk(x, k, dim=1))
+        print(f"  time  topk_with_idx {tuple(x.shape)} k={k}, {what}: "
+              + ", ".join(f"{name} {t:.3f} ms" for name, t in ms.items()), flush=True)
+    del shapes, x
+    print(f"  card  {smi}", flush=True)
+
+
 def phase_baseline(pl):
     print("phase 4: loo(centered_eight) against the published baseline", flush=True)
     want = {"elpd_loo": -30.7807, "se": 1.3435, "p_loo": 0.9472, "looic": 61.5613}
@@ -851,6 +1107,8 @@ def main() -> int:
     res64 = phase_float64(pl, ll_host, beta, res32)
     phase_baseline(pl)
     phase_streaming(pl, ll_host, model, reff, res32, res64)
+    del model, res64
+    phase_weights(pl, ll_host, beta, res32, smi)
     del ll_host
 
     for key, kern in kernels.items():

@@ -1,9 +1,14 @@
 """pyloo_tpu_torch: PSIS leave-one-out cross-validation in PyTorch, for CUDA.
 
 The PyTorch port of ``pyloo_tpu``.  It covers ``loo()`` on a log-likelihood
-matrix (PSIS, SIS, TIS, mixture) and ``loo_streaming()`` over a
-log-likelihood made on the device chunk by chunk, in float64 (the default,
-reference-exact) or float32 (through a hand-written CUDA prepass kernel).
+matrix (PSIS, SIS, TIS, mixture), ``loo_streaming()`` over a log-likelihood
+made on the device chunk by chunk, and the importance-weights path: the
+weights themselves (``psislw``, ``psislw_compact``, ``sislw``, ``tislw``,
+``compute_importance_weights``) and what reads them (``e_loo``,
+``loo_predictive_metric``, ``loo_i``, ``loo_group``, ``waic``, ``elpd``,
+``mcse_loo``, ``psis_ess_values``, ``loo_pit`` and the Pareto-k accessors),
+in float64 (the default, reference-exact) or float32 (``loo()`` and
+``loo_streaming()`` through a hand-written CUDA prepass kernel).
 The device is ``rcParams["device.device"]`` (``"cuda"`` by default; set
 ``"cpu"`` to compute on the CPU).
 
@@ -15,22 +20,67 @@ The device is ``rcParams["device.device"]`` (``"cuda"`` by default; set
     print(pl.loo(idata, pointwise=True))
 """
 
+from .base import ISMethod, compute_importance_weights
 from .containers import DataArray, Dataset, InferenceData
 from .convert import inference_data_from_numpy
 from .data import load_example_data
+from .diagnostics import (
+    loo_pit,
+    mcse_loo,
+    pareto_k_ids,
+    pareto_k_table,
+    pareto_k_values,
+    psis_ess_values,
+    relative_eff,
+)
+from .e_loo import ExpectationResult, compute_pareto_k, e_loo, k_hat
 from .elpd import ELPDData
+from .generic_elpd import elpd
 from .loo import loo
+from .loo_group import loo_group
+from .loo_i import loo_i
+from .loo_predictive_metric import MetricResult, loo_predictive_metric
+from .psis import CompactWeights, psislw, psislw_compact
 from .rcparams import rcParams
+from .sis import sislw
 from .streaming import clear_streaming_cache, loo_streaming
-from .utils import from_dict
+from .tis import tislw
+from .utils import from_dict, get_log_likelihood, to_inference_data
+from .waic import waic
 
 __all__ = [
+    "ISMethod",
+    "compute_importance_weights",
     "loo",
     "loo_streaming",
     "clear_streaming_cache",
+    "loo_i",
+    "loo_group",
+    "waic",
+    "elpd",
+    "psislw",
+    "psislw_compact",
+    "CompactWeights",
+    "sislw",
+    "tislw",
+    "e_loo",
+    "ExpectationResult",
+    "compute_pareto_k",
+    "k_hat",
+    "loo_predictive_metric",
+    "MetricResult",
+    "loo_pit",
+    "mcse_loo",
+    "pareto_k_ids",
+    "pareto_k_table",
+    "pareto_k_values",
+    "psis_ess_values",
+    "relative_eff",
     "rcParams",
     "load_example_data",
     "from_dict",
+    "get_log_likelihood",
+    "to_inference_data",
     "inference_data_from_numpy",
     "InferenceData",
     "Dataset",

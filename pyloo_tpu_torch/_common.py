@@ -46,20 +46,25 @@ def resolve_scale(scale):
     raise TypeError('Valid scale values are "deviance", "log", "negative_log"')
 
 
-def clean_log_likelihood(matrix: torch.Tensor, context="LOO") -> torch.Tensor:
-    """Replace NaN log-lik values of the ``(n_obs, S)`` matrix with -1e10, warning.
-
-    Mirrors reference behaviour at ``pyloo/loo.py:218-227``.  ``pyloo_tpu``
-    scans the host payload; here the scan runs on the device matrix, one
-    block of rows at a time so that the mask never spans the whole matrix.
-    The matrix may share memory with the caller's array, so a matrix with
-    NaN is replaced, not written to.
-    """
+def _any_rowblock(matrix: torch.Tensor, predicate) -> bool:
+    """Whether ``predicate`` holds anywhere, read one block of rows at a time
+    so that the mask never spans the whole matrix."""
     rows = max(1, (1 << 28) // max(matrix.shape[1], 1))
-    has_nan = torch.stack(
-        [torch.isnan(block).any() for block in matrix.split(rows)]
-    ).any()
-    if bool(has_nan):
+    return bool(torch.stack([predicate(block).any() for block in matrix.split(rows)]).any())
+
+
+def clean_log_likelihood(
+    matrix: torch.Tensor, context="LOO", clean_inf: bool = False
+) -> torch.Tensor:
+    """Replace NaN (and, with ``clean_inf``, +-inf) log-lik values of the
+    ``(n_obs, S)`` matrix with +-1e10, warning.
+
+    Mirrors reference behaviour at ``pyloo/loo.py:218-227`` and
+    ``pyloo/waic.py:110-132``.  ``pyloo_tpu`` scans the host payload; here
+    the scan runs on the device matrix.  The matrix may share memory with the
+    caller's array, so a matrix with such values is replaced, not written to.
+    """
+    if _any_rowblock(matrix, torch.isnan):
         warnings.warn(
             f"NaN values detected in log-likelihood. These will be ignored in"
             f" the {context} calculation.",
@@ -67,6 +72,16 @@ def clean_log_likelihood(matrix: torch.Tensor, context="LOO") -> torch.Tensor:
             stacklevel=3,
         )
         matrix = torch.where(torch.isnan(matrix), -1e10, matrix)
+    if clean_inf and _any_rowblock(matrix, torch.isinf):
+        warnings.warn(
+            f"Infinite values detected in log-likelihood. These will be"
+            f" ignored in the {context} calculation.",
+            UserWarning,
+            stacklevel=3,
+        )
+        matrix = torch.where(
+            torch.isinf(matrix), torch.where(matrix > 0, 1e10, -1e10), matrix
+        )
     return matrix
 
 

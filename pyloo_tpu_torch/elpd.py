@@ -4,9 +4,10 @@ Counterpart of ``pyloo_tpu/elpd.py`` without pandas: :class:`ELPDData` is a
 small ordered container of named rows in place of a ``pandas.Series``.  It
 keeps the behaviour ``loo()`` results are used with (indexing by name,
 attribute access to rows, ``in``, ``get``) and renders the same report
-strings byte for byte (reference ``pyloo/elpd.py:10-97`` templates).  Only
-the ``loo`` kinds are rendered here (standard and mixture); the other result
-kinds come with their estimators.
+strings byte for byte (reference ``pyloo/elpd.py:10-97`` templates).  The
+``loo`` (standard and mixture), ``waic``, ``logo`` and generic ``elpd`` kinds
+are rendered; the kfold, lfo, subsample, approximate-posterior and
+non-factorised kinds come with their estimators.
 """
 
 from __future__ import annotations
@@ -25,6 +26,30 @@ Computed from {n_samples} posterior samples and {n_points} observations log-like
 elpd_loo   {elpd:<8.2f}    {se:<.2f}
 p_loo       {p_loo:<8.2f}    {p_loo_se:<.2f}
 looic      {looic:<8.2f}    {looic_se:<.2f}"""
+
+# Generic held-out-data ELPD (R loo::elpd parity; no reference analogue).
+GENERIC_ELPD_FMT = """
+Computed from {n_samples} by {n_points} log-likelihood matrix using the generic elpd function.
+
+     Estimate       SE
+elpd   {elpd:<8.2f}    {se:<.2f}
+ic     {ic:<8.2f}    {ic_se:<.2f}"""
+
+LOGO_BASE_FMT = """
+Computed from {n_samples} posterior samples and {n_groups} groups log-likelihood matrix.
+
+         Estimate       SE
+elpd_logo   {elpd:<8.2f}    {se:<.2f}
+p_logo       {p_logo:<8.2f}    {p_logo_se:<.2f}
+logoic      {logoic:<8.2f}    {logoic_se:<.2f}"""
+
+WAIC_BASE_FMT = """
+Computed from {n_samples} posterior samples and {n_points} observations log-likelihood matrix.
+
+          Estimate       SE
+elpd_waic   {elpd:<8.2f}    {se:<.2f}
+p_waic       {p_waic:<8.2f}    -
+waic       {waicic:<8.2f}    {waicic_se:<.2f}"""
 
 MIXTURE_BASE_FMT = """
 Computed from {n_samples} posterior samples and {n_points} observations log-likelihood matrix with
@@ -142,11 +167,63 @@ class ELPDData:
 
     # -- report -------------------------------------------------------------
     def __str__(self):
-        if self.index[0] != "elpd_loo":
-            raise NotImplementedError(
-                "pyloo_tpu_torch renders loo results only; the other result"
-                " kinds come with their estimators"
+        first = self.index[0]
+        if first == "elpd":  # generic held-out elpd
+            return GENERIC_ELPD_FMT.format(
+                n_samples=self.n_samples,
+                n_points=self.n_data_points,
+                elpd=self["elpd"],
+                se=self["se"],
+                ic=self["ic"],
+                ic_se=self["ic_se"],
             )
+        if first == "elpd_waic":
+            return self._format_waic()
+        if first == "elpd_logo":
+            return self._format_logo()
+        if first != "elpd_loo" or "subsampling_SE" in self:
+            raise NotImplementedError(
+                "pyloo_tpu_torch renders loo, waic, logo and generic elpd results;"
+                " the other result kinds come with their estimators"
+            )
+        return self._format_loo()
+
+    def __repr__(self):
+        return self.__str__()
+
+    def _format_waic(self):
+        elpd = self["elpd_waic"]
+        se = self["se"]
+        base = WAIC_BASE_FMT.format(
+            n_samples=self.n_samples,
+            n_points=self.n_data_points,
+            elpd=elpd,
+            se=se,
+            p_waic=self["p_waic"],
+            waicic=-2 * elpd,
+            waicic_se=2 * se,
+        )
+        if self.warning:
+            base += _WARNING_NOTE
+        return base
+
+    def _format_logo(self):
+        base = LOGO_BASE_FMT.format(
+            n_samples=self.n_samples,
+            n_groups=self["n_groups"],
+            elpd=self["elpd_logo"],
+            se=self["se"],
+            p_logo=self["p_logo"],
+            p_logo_se=self.get("p_logo_se", float("nan")),
+            logoic=self["logoic"],
+            logoic_se=self["logoic_se"],
+        )
+        if self.warning:
+            base += _WARNING_NOTE
+        section, _ = _pareto_section(self)
+        return base + section
+
+    def _format_loo(self):
         pareto_msg, all_good = _pareto_section(self)
         # pyloo_tpu's loo() never sets a method, so its report takes the
         # psis branch here for sis and tis results too
@@ -185,6 +262,3 @@ class ELPDData:
         if self.warning:
             base += _WARNING_NOTE
         return base + pareto_msg
-
-    def __repr__(self):
-        return self.__str__()

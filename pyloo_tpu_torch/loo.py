@@ -23,7 +23,7 @@ from ._common import (
     good_k_threshold,
     resolve_scale,
 )
-from .base import ISMethod, as_sample_matrix
+from .base import ISMethod, _host, as_sample_matrix
 from .containers import DataArray
 from .elpd import ELPDData
 from .ops import tail_length
@@ -39,10 +39,6 @@ from .rcparams import rcParams
 from .utils import get_log_likelihood, to_inference_data
 
 __all__ = ["loo"]
-
-
-def _host(t):
-    return t.cpu().numpy()
 
 
 def loo(

@@ -29,7 +29,14 @@ import math
 import torch
 
 from .lse import logsumexp
-from .psis import _gpdfit_batch, _gpdfit_from_y, _log1mexp, sislw_batch, tislw_batch
+from .psis import (
+    _LINEAR_FIT_MIN_LOG_QUART,
+    _gpdfit_batch,
+    _gpdfit_from_y,
+    _log1mexp,
+    sislw_batch,
+    tislw_batch,
+)
 from .selection import fast_path_route, topk_vals_desc
 from .topk import (
     _CUTOFF_FLOOR,
@@ -45,14 +52,8 @@ __all__ = [
     "loo_scores_sis",
     "loo_scores_tis",
     "mixture_scores",
+    "waic_scores",
 ]
-
-# Deep-tail guard for the linear float64 fit: with the quartile exceedance
-# below e^-60 the batch takes the signed-log fit (pyloo_tpu
-# ``_LINEAR_FIT_MIN_LOG_QUART``; the linear pipeline overflows IEEE float64
-# for quartiles below ~e^-705, and the TPU's emulated float64 much earlier).
-_LINEAR_FIT_MIN_LOG_QUART = -60.0
-
 
 def _psis_tail_scores(tail_vals, xcutoff, log_ntl, C, S: int, *, exact: bool):
     """GPD fit + smoothing + elpd reductions over the compacted tail.
@@ -314,3 +315,14 @@ def mixture_scores(log_lik):
     elpd_i = log_norm - log_obs
     lppd_i = logsumexp(log_lik, dim=1, b_inv=S)
     return elpd_i, lppd_i
+
+
+def waic_scores(log_lik):
+    """(B, S) log-lik -> (lppd_i, p_waic_i) for WAIC (reference waic.py:137-146).
+
+    The reference takes the population variance over draws (ddof = 0).
+    """
+    S = log_lik.shape[1]
+    lppd_i = logsumexp(log_lik, dim=1, b_inv=S)
+    p_waic_i = torch.var(log_lik, dim=1, correction=0)
+    return lppd_i, p_waic_i

@@ -1,17 +1,22 @@
 """Pareto-smoothed / truncated / standard importance sampling, batched.
 
-Counterpart of ``pyloo_tpu/ops/psis.py``, limited to what ``loo()`` reaches:
-the tail length, the signed-log Zhang-Stephens fit (:func:`_gpdfit_batch`,
-float32 and the float64 deep-tail branch), the linear fit over a
-renormalized-product profile likelihood (:func:`_gpdfit_from_y`, float64),
-and the SIS / TIS weights.  The order of operations follows ``pyloo_tpu``
-line for line: the float64 path is held to it at 1e-12.
+Counterpart of ``pyloo_tpu/ops/psis.py``: the tail length, the signed-log
+Zhang-Stephens fit (:func:`_gpdfit_batch`, float32 and the float64 deep-tail
+branch), the linear fit over a renormalized-product profile likelihood
+(:func:`_gpdfit_from_y` on exceedances, :func:`_gpdfit_batch_linear` on
+their logs; float64), the smoothed weights as a dense matrix
+(:func:`psislw_batch`) or as a per-row scalar plus a tail patch
+(:func:`psislw_compact_batch`, with :func:`compact_weighted_mean` and
+:func:`compact_weighted_moments` to read them), and the SIS / TIS weights.
+The order of operations follows ``pyloo_tpu`` line for line: the float64
+path is held to it at 1e-12.
 
 The JAX package's ``lax.scan`` over the candidate grid becomes a Python loop
 over candidates on ``(B, M)`` tensors, which bounds peak memory at one
 ``(B, M)`` temporary per step.  The fits take the product form of the
-profile likelihood only (``product=True`` at every ``pyloo_tpu`` call site
-that ``loo()`` reaches), so the ``log1p``-sum variant is not ported.
+profile likelihood only (``product=True`` at every call site of
+``pyloo_tpu``), so the ``log1p``-sum variant and its ``product`` argument
+are not ported.
 
 All math follows Vehtari, Simpson, Gelman, Yao, Gabry (2024), "Pareto
 smoothed importance sampling", JMLR 25(72), and Zhang & Stephens (2009).
@@ -24,8 +29,20 @@ import math
 import torch
 
 from .lse import logsumexp
+from .selection import topk_with_idx
+from .topk import _CUTOFF_FLOOR
 
-__all__ = ["tail_length", "sislw_batch", "tislw_batch"]
+__all__ = [
+    "tail_length",
+    "psislw_batch",
+    "psislw_compact_batch",
+    "compact_weighted_mean",
+    "compact_weighted_moments",
+    "sislw_batch",
+    "tislw_batch",
+    "gpdfit",
+    "gpinv",
+]
 
 _PRIOR_BS = 3.0
 _PRIOR_K = 10.0
@@ -319,6 +336,370 @@ def _gpdfit_from_y(y, nf, y_quart, y_last):
     sigma = -k_post / b_post
     k_post = (nf * k_post + _PRIOR_K * 0.5) / (nf + _PRIOR_K)
     return k_post, sigma
+
+
+def _linear_candidate_grid(log_ary, n, log_quart=None, log_last=None):
+    """Shared precomputation for the linear fit: exceedances and b grid.
+
+    Returns ``(y, nf, b, grid_valid)`` with ``y`` the (B, M) linear
+    exceedances (invalid slots exactly 0), ``b`` the (B, m_max) candidate
+    grid and ``grid_valid`` its per-row validity mask.
+    """
+    M = log_ary.shape[1]
+    nf = n.to(log_ary.dtype)
+    y = torch.exp(log_ary)  # invalid slots: exp(-inf) = 0, a factor of 1
+    if log_quart is None:
+        log_quart = _gather_col(log_ary, torch.clamp((n + 2) // 4 - 1, 0, M - 1))
+    if log_last is None:
+        log_last = _gather_col(log_ary, torch.clamp(n - 1, 0, M - 1))
+    b, grid_valid = _candidate_grid_y(y, nf, torch.exp(log_quart), torch.exp(log_last))
+    return y, nf, b, grid_valid
+
+
+def _linear_fit_close(y, nf, b_post):
+    """Final k and sigma from the posterior-mean b (reference ``psis.py:200-207``).
+
+    Returns ``(k_post, sign_sigma, log_sigma)``, the scale in signed-log form
+    like :func:`_gpdfit_batch`.
+    """
+    nf_safe = torch.where(nf == 0, 1.0, nf)
+    k_post = _log_prod_terms(y, b_post) / nf_safe
+    sign_sigma = torch.sign(-k_post / b_post)
+    log_sigma = torch.log(torch.abs(k_post)) - torch.log(torch.abs(b_post))
+    k_post = (nf * k_post + _PRIOR_K * 0.5) / (nf + _PRIOR_K)
+    return k_post, sign_sigma, log_sigma
+
+
+# Deep-tail guard for the linear float64 fit: exceedances are max-shifted
+# (log_ary <= 0), so the quartile anchor alone bounds the linear pipeline's
+# magnitudes, and IEEE float64 overflows in it for quartiles below ~e^-705
+# (pyloo_tpu sets the guard at e^-60 for the TPU's emulated float64; the same
+# value is kept so that both packages take the same branch on the same rows).
+_LINEAR_FIT_MIN_LOG_QUART = -60.0
+
+
+def _gpdfit_batch_linear(log_ary, n, log_quart=None, log_last=None):
+    """Reference-verbatim Zhang-Stephens fit in the linear domain (float64).
+
+    Requires ``log_ary <= 0`` (exceedances of max-shifted log weights).
+    Formula for formula the reference fit (``psis.py:163-208``).  Same
+    signature and returns as :func:`_gpdfit_batch`.
+
+    Deep tails (a quartile exceedance below ``e**-60`` on a row with more
+    than 4 exceedances) send the *whole batch* to the signed-log fit, which
+    agrees with the linear one to ~1e-14 where both are defined: a rule over
+    the batch, as in ``pyloo_tpu``, read on the host once per call.
+    """
+    M = log_ary.shape[1]
+    if log_quart is None:
+        log_quart = _gather_col(log_ary, torch.clamp((n + 2) // 4 - 1, 0, M - 1))
+    if log_last is None:
+        log_last = _gather_col(log_ary, torch.clamp(n - 1, 0, M - 1))
+    # rows with <= 4 exceedances never smooth and may carry -inf anchors:
+    # they do not force the signed-log fit; NaN anchors compare False and do
+    in_range = (n <= 4) | (log_quart >= _LINEAR_FIT_MIN_LOG_QUART)
+    if bool(in_range.all()):
+        y, nf, b, grid_valid = _linear_candidate_grid(log_ary, n, log_quart, log_last)
+        return _linear_fit_close(y, nf, _linear_b_post(y, nf, b, grid_valid))
+    return _gpdfit_batch(log_ary, n, log_quart=log_quart, log_last=log_last)
+
+
+def _gpdfit_dispatch(log_exceed, n_tail, log_quart, log_last):
+    """The fit for max-shifted PSIS exceedances (log values <= 0).
+
+    float64 takes the reference-verbatim linear fit, float32 the signed-log
+    fit (linear float32 exceedances underflow below ~e^-88).
+    """
+    if log_exceed.dtype == torch.float64:
+        return _gpdfit_batch_linear(log_exceed, n_tail, log_quart=log_quart, log_last=log_last)
+    return _gpdfit_batch(log_exceed, n_tail, log_quart=log_quart, log_last=log_last)
+
+
+def gpdfit(ary):
+    """Fit a GPD to an ascending sample (1-D, or rows of a 2-D tensor).
+
+    Convenience entry point over :func:`_gpdfit_batch` for full rows; mirrors
+    reference ``pyloo/psis.py:163-208``.  Returns ``(k, sigma)``.
+    """
+    ary = torch.as_tensor(ary)
+    squeeze = ary.dim() == 1
+    if squeeze:
+        ary = ary[None, :]
+    n = torch.full((ary.shape[0],), ary.shape[1], dtype=torch.int32, device=ary.device)
+    k, sign_sigma, log_sigma = _gpdfit_batch(torch.log(ary), n)
+    sigma = sign_sigma * torch.exp(log_sigma)
+    if squeeze:
+        return k[0], sigma[0]
+    return k, sigma
+
+
+def _gpinv_masked(probs, kappa, sigma, valid):
+    """Inverse GPD CDF at plotting positions, with per-row parameters.
+
+    probs: (B, M) in (0, 1) where ``valid``; kappa, sigma: (B,).  Reference
+    semantics (``pyloo/psis.py:211-231``): ``sigma <= 0`` poisons the row with
+    NaN; near-zero kappa takes the exponential limit.
+    """
+    eps = torch.finfo(probs.dtype).eps
+    kap = kappa[:, None]
+    log1m = torch.log1p(-torch.where(valid, probs, 0.5))
+    small_kappa = torch.abs(kap) < eps
+    safe_kap = torch.where(small_kappa, 1.0, kap)  # guards the division
+    q = torch.where(small_kappa, -log1m, torch.expm1(-safe_kap * log1m) / safe_kap)
+    q = q * sigma[:, None]
+    return torch.where(sigma[:, None] > 0, q, math.nan)
+
+
+def gpinv(probs, kappa, sigma):
+    """Inverse GPD CDF for one parameter pair (1-D or 2-D ``probs``)."""
+    probs = torch.as_tensor(probs)
+    was_1d = probs.dim() == 1
+    probs = torch.atleast_2d(probs)
+    kap = probs.new_full((probs.shape[0],), float(kappa))
+    sig = probs.new_full((probs.shape[0],), float(sigma))
+    ok = (probs > 0) & (probs < 1)
+    q = _gpinv_masked(probs, kap, sig, ok)
+    q = torch.where(ok, q, math.nan)
+    # the edges probs == 0 and probs == 1, as psis.py:228-230
+    q = torch.where(probs == 0, 0.0, q)
+    upper = torch.where(kap >= 0, math.inf, -sig / torch.where(kap == 0, 1.0, kap))
+    q = torch.where(probs == 1, upper[:, None] * torch.ones_like(q), q)
+    q = torch.where(sig[:, None] > 0, q, math.nan)
+    return q[0] if was_1d else q
+
+
+# ---------------------------------------------------------------------------
+# PSIS
+# ---------------------------------------------------------------------------
+
+
+def _smoothed_tail_desc(tail_vals, xcutoff, tail_max: int):
+    """Element-level tail smoothing in the descending top-k layout.
+
+    Unlike the sums of ``loo_kernels._psis_tail_scores`` this gives a smoothed
+    value per element, so the plotting positions follow the reference's
+    stable ascending argsort within tied runs (``pyloo/psis.py:152-156``).
+    For that, tied values of ``tail_vals`` must come by ascending source
+    index (:func:`~.selection.topk_with_idx`).
+
+    Returns ``(smoothed_desc, slot_valid, n_tail, k, smooth_ok)``;
+    ``smoothed_desc`` is NaN on sigma <= 0 fits (reference ``gpinv``) and not
+    yet truncated at zero.
+    """
+    dtype = tail_vals.dtype
+    B = tail_vals.shape[0]
+    device = tail_vals.device
+
+    in_tail = tail_vals > xcutoff[:, None]  # strict, preserves tie semantics
+    n_tail = in_tail.sum(dim=1)  # (B,) int64
+
+    # log exceedances in descending layout:
+    # log(exp(x) - exp(xcutoff)) = x + log1mexp(xcutoff - x)
+    slot = torch.arange(tail_max, device=device)
+    slot_valid = slot[None, :] < n_tail[:, None]
+    gap = torch.clamp_max(xcutoff[:, None] - tail_vals, 0.0)  # <= 0 for valid slots
+    log_exceed = torch.where(slot_valid, tail_vals + _log1mexp(gap), -math.inf)
+
+    # ascending index q_idx maps to descending index n - 1 - q_idx
+    q_idx = torch.clamp((n_tail + 2) // 4 - 1, 0, tail_max - 1)
+    q_desc = torch.clamp(n_tail - 1 - q_idx, 0, tail_max - 1)
+    log_quart = _gather_col(log_exceed, q_desc)
+    log_last = log_exceed[:, 0]
+
+    k, sign_sigma, log_sigma = _gpdfit_dispatch(log_exceed, n_tail, log_quart, log_last)
+
+    # Plotting positions: within a run of tied tail values the element at the
+    # lower source index gets the lower position.  The selection orders ties
+    # by ascending index as the descending slot grows, so the ascending rank
+    # of slot d is (n - 1 - run_end) + (d - run_start): n - 1 - d for
+    # distinct values, reversed within each tied run.
+    nf = n_tail.to(dtype)
+    eps = torch.finfo(dtype).eps
+    changes = tail_vals[:, 1:] != tail_vals[:, :-1]
+    edge = torch.ones((B, 1), dtype=torch.bool, device=device)
+    is_run_start = torch.cat([edge, changes], dim=1)
+    is_run_end = torch.cat([changes, edge], dim=1)
+    run_start = torch.cummax(torch.where(is_run_start, slot[None, :], -1), dim=1).values
+    run_end = (
+        torch.cummin(torch.where(is_run_end, slot[None, :], tail_max).flip(1), dim=1)
+        .values.flip(1)
+    )
+    asc_rank = (n_tail[:, None] - 1 - run_end) + (slot[None, :] - run_start)
+    probs = (asc_rank.to(dtype) + 0.5) / torch.where(nf == 0, 1.0, nf)[:, None]
+    log1m_p = torch.log1p(-torch.where(slot_valid, probs, 0.5))
+    u = -k[:, None] * log1m_p  # sign(u) == sign(k); expm1(u)/k > 0 always
+    log_abs_expm1 = torch.where(u >= 0, u, 0.0) + _log1mexp(-torch.abs(u))
+    log_q = torch.where(
+        torch.abs(k)[:, None] < eps,
+        torch.log(-log1m_p),
+        log_abs_expm1 - torch.log(torch.abs(k))[:, None],
+    )
+    smoothed_desc = torch.logaddexp(log_sigma[:, None] + log_q, xcutoff[:, None])
+    # sigma <= 0 poisons the row with NaN, matching reference gpinv semantics
+    smoothed_desc = torch.where(sign_sigma[:, None] > 0, smoothed_desc, math.nan)
+
+    smooth_ok = (n_tail > 4) & torch.isfinite(k)
+    return smoothed_desc, slot_valid, n_tail, k, smooth_ok
+
+
+def _select_tail(x, tail_max: int):
+    """Top ``tail_max`` of the shifted rows, their indices and the cutoff
+    (the ``tail_max + 1``-th largest, floored at log(float64 tiny))."""
+    vals, idx = topk_with_idx(x, tail_max + 1)  # descending, (B, M+1)
+    xcutoff = torch.clamp_min(vals[:, tail_max], _CUTOFF_FLOOR)
+    return vals, idx[:, :tail_max], xcutoff
+
+
+def psislw_batch(log_weights, tail_max: int):
+    """Pareto-smooth a batch of log-weight rows.
+
+    Parameters
+    ----------
+    log_weights : (B, S) tensor
+        Raw log importance weights, one row per observation; not written to.
+    tail_max : int
+        Tail budget M (from :func:`tail_length`).
+
+    Returns
+    -------
+    lw : (B, S) tensor
+        Smoothed, truncated-at-zero, logsumexp-normalized log weights.
+    khat : (B,) tensor
+        Pareto shape diagnostic; ``inf`` where the tail had <= 4 exceedances.
+    """
+    x = log_weights - log_weights.amax(dim=1, keepdim=True)  # a tensor of its own
+    vals, tail_idx, xcutoff = _select_tail(x, tail_max)
+    tail_vals = vals[:, :tail_max]
+    smoothed_desc, slot_valid, n_tail, k, smooth_ok = _smoothed_tail_desc(
+        tail_vals, xcutoff, tail_max
+    )
+
+    # the smoothed tail goes back to its source positions; slots outside the
+    # strict tail keep their own value (tail_vals is x at tail_idx)
+    use_smoothed = slot_valid & smooth_ok[:, None]
+    x.scatter_(1, tail_idx, torch.where(use_smoothed, smoothed_desc, tail_vals))
+
+    # truncate at zero (only when smoothing ran), then self-normalize
+    x.masked_fill_(smooth_ok[:, None] & (x > 0), 0.0)
+    x -= logsumexp(x, dim=1, keepdim=True)
+
+    khat = torch.where(n_tail <= 4, math.inf, k)
+    return x, khat
+
+
+def psislw_compact_batch(log_weights, tail_max: int):
+    """Scatter-free PSIS: the weights of :func:`psislw_batch` without the
+    ``(B, S)`` smoothed matrix.
+
+    The smoothed row differs from the raw row only at the <= M tail
+    positions, so the weights are a per-row scalar plus an ``O(M)`` patch:
+
+        lw[b, s] = log_weights[b, s] - log_norm[b]      for s not in tail_idx
+        lw[b, tail_idx[b, j]] = tail_lw[b, j]           for every slot j
+
+    (the second line also holds for slots beyond the strict tail, which
+    carry the first line's value).
+
+    Returns
+    -------
+    log_norm : (B,) tensor
+        Row normalizer: ``raw - log_norm`` is the final log weight off-tail.
+    tail_idx : (B, M) int64 tensor
+        Column indices of the top-M candidate tail, descending by value.
+    tail_lw : (B, M) tensor
+        Final (smoothed, truncated, normalized) log weights at ``tail_idx``.
+    xcutoff : (B,) tensor
+        The tail cutoff in the shifted domain (``x - rowmax``): readers shift
+        the raw rows the same way and compare there, which reproduces the
+        selection's membership bit for bit.
+    khat : (B,) tensor
+        Same diagnostic as :func:`psislw_batch`.
+    """
+    C1 = log_weights.amax(dim=1)
+    x = log_weights - C1[:, None]
+    vals, tail_idx, xcutoff = _select_tail(x, tail_max)
+    tail_vals = vals[:, :tail_max]
+    smoothed_desc, slot_valid, n_tail, k, smooth_ok = _smoothed_tail_desc(
+        tail_vals, xcutoff, tail_max
+    )
+
+    use_smoothed = slot_valid & smooth_ok[:, None]
+    scatter_vals = torch.where(use_smoothed, smoothed_desc, tail_vals)
+    scatter_vals = torch.where(smooth_ok[:, None] & (scatter_vals > 0), 0.0, scatter_vals)
+
+    # normalizer without the scatter: the elements strictly above the cutoff
+    # are exactly the valid slots, so the row's logsumexp is the non-tail
+    # mass under the value mask plus the (possibly smoothed) valid slots
+    m1 = torch.gather(vals, 1, n_tail[:, None])[:, 0]
+    m1s = torch.where(torch.isfinite(m1), m1, 0.0)
+    nontail_mask = x <= xcutoff[:, None]
+    log_ntl = m1s + torch.log(
+        torch.where(nontail_mask, torch.exp(x - m1s[:, None]), 0.0).sum(dim=1)
+    )
+    lse_valid = logsumexp(torch.where(slot_valid, scatter_vals, -math.inf), dim=1)
+    denom = torch.logaddexp(log_ntl, lse_valid)
+
+    log_norm = C1 + denom
+    tail_lw = scatter_vals - denom[:, None]
+    khat = torch.where(n_tail <= 4, math.inf, k)
+    return log_norm, tail_idx, tail_lw, xcutoff, khat
+
+
+def _compact_weights(log_weights, log_norm, tail_idx, tail_lw, xcutoff):
+    """Non-tail weights over the raw rows and the strict-tail slots' weights.
+
+    The membership comparison runs in the shifted domain (``raw - rowmax``,
+    the subtraction the selection made, in the same dtype), so the cutoff
+    order statistic never changes sides from re-rounding.
+    """
+    x = log_weights - log_weights.amax(dim=1, keepdim=True)
+    nontail = x <= xcutoff[:, None]
+    w_base = torch.where(nontail, torch.exp(log_weights - log_norm[:, None]), 0.0)
+    x_at = torch.gather(x, 1, tail_idx)
+    w_tail = torch.where(x_at > xcutoff[:, None], torch.exp(tail_lw), 0.0)
+    return w_base, w_tail
+
+
+def compact_weighted_mean(h, log_weights, log_norm, tail_idx, tail_lw, xcutoff):
+    """``E[h]`` per row under compact PSIS weights, scatter-free.
+
+    One pass over the raw ``(B, S)`` matrix restricted by value to the
+    non-tail, plus the smoothed contributions of the <= M strict-tail slots:
+
+        E_b = sum_{x <= cutoff} h exp(raw - log_norm)
+            + sum_{j: x[idx_j] > cutoff} h[idx_j] exp(tail_lw_j)
+
+    (including the raw tail and subtracting it again would cancel: the raw
+    tail can exceed the smoothed normalizer by many orders of magnitude).
+    """
+    w_base, w_tail = _compact_weights(log_weights, log_norm, tail_idx, tail_lw, xcutoff)
+    out = (h * w_base).sum(dim=1) + (torch.gather(h, 1, tail_idx) * w_tail).sum(dim=1)
+    # NaN-poisoned rows (sigma <= 0 fits) stay NaN: the masks would drop
+    # every term and return 0
+    return torch.where(torch.isnan(log_norm), math.nan, out)
+
+
+def compact_weighted_moments(h, log_weights, log_norm, tail_idx, tail_lw, xcutoff):
+    """(mean, unbiased variance) of ``h`` under compact PSIS weights.
+
+    The same evaluation as :func:`compact_weighted_mean`; the three row sums
+    of the variance share one pass.  Variance as in
+    :func:`..expectations.weighted_variance_batch` (reference
+    ``pyloo/e_loo.py:518-531``): ``(E[h^2]-E[h]^2)/(1-sum w^2)`` clamped at
+    0, exactly 0 for constant ``h`` and for one dominant weight.
+    """
+    w_base, w_tail = _compact_weights(log_weights, log_norm, tail_idx, tail_lw, xcutoff)
+    h_at = torch.gather(h, 1, tail_idx)
+    mean = (h * w_base).sum(dim=1) + (h_at * w_tail).sum(dim=1)
+    mean_sq = (h**2 * w_base).sum(dim=1) + (h_at**2 * w_tail).sum(dim=1)
+    w_sum_sq = (w_base**2).sum(dim=1) + (w_tail**2).sum(dim=1)
+
+    var = torch.clamp_min((mean_sq - mean**2) / (1.0 - w_sum_sq), 0.0)
+    constant = torch.isclose(h, h[:, :1]).all(dim=1)
+    degenerate = torch.isclose(w_sum_sq, torch.ones_like(w_sum_sq))
+    var = torch.where(constant | degenerate, 0.0, var)
+    poisoned = torch.isnan(log_norm)
+    return torch.where(poisoned, math.nan, mean), torch.where(poisoned, math.nan, var)
 
 
 # ---------------------------------------------------------------------------

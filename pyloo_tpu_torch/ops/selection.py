@@ -6,13 +6,12 @@ at least 128 rows (``_PALLAS_MIN_ROWS``), a gate that only existed because
 one Pallas grid step padded to the TPU's 128 lanes.  On the card the kernel
 runs one block per row, so the CUDA route has no row minimum.
 
-Left out on purpose:
-
-* ``topk_hybrid_f64`` — float64 selection through a float32 proxy, a
-  workaround for the TPU's emulated float64 that measured as a loss there;
-  the H100 has native float64 and ``torch.topk`` takes it directly;
-* ``topk_with_idx`` — index-returning selection, used only by
-  ``psislw_batch``'s scatter, which waits for a later slice.
+Left out on purpose: ``topk_hybrid_f64``, float64 selection through a
+float32 proxy, a workaround for the TPU's emulated float64 that measured as
+a loss there; the H100 has native float64 and ``torch.topk`` takes it
+directly.  The segmented ``approx_max_k`` cascade of ``topk_with_idx`` is an
+XLA artefact too: here the selection with indices is ``torch.topk`` plus the
+tie order that ``jax.lax.top_k`` promises and ``torch.topk`` does not.
 """
 
 from __future__ import annotations
@@ -21,7 +20,7 @@ import torch
 
 from .topk import multipass_parts, supports, topk_desc
 
-__all__ = ["topk_vals_desc", "fast_path_route"]
+__all__ = ["topk_vals_desc", "topk_with_idx", "fast_path_route"]
 
 
 def fast_path_route(s: int, k: int, dtype, device) -> str:
@@ -57,3 +56,44 @@ def topk_vals_desc(x: torch.Tensor, k: int) -> torch.Tensor:
     if x.dtype == torch.float32 and supports(x.shape[1], k):
         return topk_desc(x, k)
     return torch.topk(x, k, dim=-1, sorted=True).values
+
+
+# How topk_with_idx puts tied values in index order.  "topk": torch.topk,
+# then two stable sorts over the narrow (B, k) result (by index, then by
+# value descending).  "sort": one stable descending sort of the whole row,
+# cut at k.  Same values either way.  On an NVIDIA H100 80GB HBM3 at 700 W
+# (chip_smoke.py, phase 6) "sort" is 1.7 ms faster at 65,536 x 4,000 float32
+# (8.9 against 10.6 ms) and 4 to 5 times slower past 4,096 draws (22.2
+# against 5.1 ms at 16,384 x 16,000), and it holds the row's values and
+# int64 indices besides: "topk" at every width.
+TIE_ORDER_VARIANT = "topk"
+
+
+def topk_with_idx(x: torch.Tensor, k: int, variant: str | None = None):
+    """Exact top-k values and source indices per row, descending.
+
+    Like ``jax.lax.top_k``: within each run of equal values the indices
+    ascend.  ``_smoothed_tail_desc`` depends on that order (its plotting
+    positions reverse each tied run to match a stable ascending argsort),
+    and ``torch.topk`` promises no order among ties, so the order is made
+    here, on the CPU and on the card alike.
+
+    One difference from ``lax.top_k`` remains with ``variant="topk"``: when
+    a run of equal values straddles slot ``k``, *which* members of the run
+    are returned is ``torch.topk``'s choice (``lax.top_k`` and
+    ``variant="sort"`` take the lowest indices).  In PSIS those members equal
+    the cutoff, are outside the strict tail and are written back unchanged,
+    so the weights do not depend on the choice.
+    """
+    variant = TIE_ORDER_VARIANT if variant is None else variant
+    if variant == "sort":
+        vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+        return vals[..., :k].contiguous(), idx[..., :k].contiguous()
+    if variant != "topk":
+        raise ValueError(f"unknown variant {variant!r}")
+    vals, idx = torch.topk(x, k, dim=-1, sorted=True)
+    idx, by_index = torch.sort(idx, dim=-1, stable=True)
+    vals, by_value = torch.sort(
+        torch.gather(vals, -1, by_index), dim=-1, descending=True, stable=True
+    )
+    return vals, torch.gather(idx, -1, by_value)

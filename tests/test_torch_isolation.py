@@ -22,6 +22,10 @@ import torch
 import pyloo_tpu_torch as pl
 import pyloo_tpu_torch.streaming
 import pyloo_tpu_torch.ops.topk_profile
+import importlib
+for name in ("base", "psis", "sis", "tis", "waic", "loo_i", "e_loo", "loo_predictive_metric",
+             "diagnostics", "generic_elpd", "loo_group", "ops.expectations", "ops.selection"):
+    importlib.import_module("pyloo_tpu_torch." + name)
 
 pl.rcParams["device.device"] = "cpu"
 res = pl.loo(pl.load_example_data("centered_eight"))
@@ -29,17 +33,59 @@ assert round(res["elpd_loo"], 4) == -30.7807, res["elpd_loo"]
 ll = torch.randn(40, 100, dtype=torch.float64)
 res = pl.loo_streaming(lambda idx: ll[idx], 40, 100, chunk_size=16)
 assert res["n_data_points"] == 40
+
+# the weights path: psislw -> e_loo, and each of the other entry points
+import numpy as np
+eight = pl.load_example_data("centered_eight")
+log_lik = eight.log_likelihood.obs.stack(__sample__=("chain", "draw"))
+rng = np.random.default_rng(0)
+y = rng.normal(size=6)
+pred = pl.from_dict(
+    posterior={"b": rng.normal(size=(2, 100))},
+    log_likelihood={"y": rng.normal(-1.0, 0.3, size=(2, 100, 6))},
+    posterior_predictive={"y": y + rng.normal(size=(2, 100, 6))},
+    observed_data={"y": y},
+)
+weights_path = {
+    "psislw": lambda: pl.psislw(-log_lik),
+    "psislw_compact": lambda: pl.psislw_compact(-log_lik),
+    "sislw": lambda: pl.sislw(-log_lik),
+    "tislw": lambda: pl.tislw(-log_lik),
+    "compute_importance_weights": lambda: pl.compute_importance_weights(-log_lik),
+    "waic": lambda: pl.waic(eight),
+    "loo_i": lambda: pl.loo_i(2, eight),
+    "elpd": lambda: pl.elpd(eight),
+    "loo_group": lambda: pl.loo_group(eight, np.arange(8) // 2),
+    "mcse_loo": lambda: pl.mcse_loo(eight),
+    "psis_ess_values": lambda: pl.psis_ess_values(eight),
+    "loo_pit": lambda: pl.loo_pit(pred),
+    "loo_predictive_metric": lambda: pl.loo_predictive_metric(pred, y),
+    "compute_pareto_k": lambda: pl.compute_pareto_k(None, np.zeros((2, 50))),
+    "k_hat": lambda: pl.k_hat(None, np.arange(50.0)),
+}
+lw, k = pl.psislw(-log_lik)
+weights_path["e_loo"] = lambda: pl.e_loo(eight, group="posterior", var_name="theta", log_weights=lw)
+weights_path["CompactWeights.weighted_mean"] = lambda: compact.weighted_mean(
+    log_lik.values, -log_lik.values)
+compact = pl.psislw_compact(-log_lik)
+for call in weights_path.values():
+    call()
+means = pl.e_loo(eight, group="posterior", var_name="theta", log_weights=lw, log_ratios=-log_lik)
+assert means.value.shape == (8,) and float(k.values.max()) < 0.7
+assert round(pl.waic(eight)["elpd_waic"], 4) == -30.7378, pl.waic(eight)["elpd_waic"]
 loaded = [m for m, mod in sys.modules.items() if mod is not None]
-assert not any(m == "pyloo_tpu" or m.startswith(("pyloo_tpu.", "jax")) for m in loaded)
+assert not any(m == "pyloo_tpu" or m.startswith(("pyloo_tpu.", "jax", "pandas")) for m in loaded)
 
 if not torch.cuda.is_available():
     pl.rcParams["device.device"] = "cuda"
-    try:
-        pl.loo(pl.load_example_data("centered_eight"))
-    except RuntimeError as err:
-        assert "no CUDA device" in str(err), err
-    else:
-        raise AssertionError("loo fell back to the CPU")
+    weights_path["loo"] = lambda: pl.loo(eight)
+    for name, call in weights_path.items():
+        try:
+            call()
+        except RuntimeError as err:
+            assert "no CUDA device" in str(err), (name, err)
+        else:
+            raise AssertionError(name + " fell back to the CPU")
 print("isolated ok")
 """
 
@@ -47,7 +93,7 @@ print("isolated ok")
 def test_runs_without_jax_or_pandas_and_never_falls_back():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run(
-        [sys.executable, "-c", _SCRIPT.format(repo=str(REPO))],
+        [sys.executable, "-c", _SCRIPT.replace("{repo!r}", repr(str(REPO)))],
         capture_output=True,
         text=True,
         timeout=300,
