@@ -42,9 +42,9 @@ Phases:
    in float64 against the same call on the CPU, ``waic`` at 1,000,000 x 4,000,
    ``loo_i``, ``e_loo``, ``mcse_loo``, ``psis_ess_values`` and ``loo_group``,
    each held to a number the run already has or to the CPU on a 4,096-row
-   cut; the wall time and peak device memory of each call, both ways of
-   ordering ties in ``topk_with_idx``, and the kernels' launches (this path
-   selects with indices, through ``torch.topk``).
+   cut; the wall time, peak device memory and kernel launches of each call
+   (each a launch window of its own; this path selects with indices, through
+   ``torch.topk``), and ``topk_with_idx`` timed against a stable row sort.
 
 Every main path runs with the kernels' launch counters set to 0 just before
 it and read just after; comparisons with the plain versions run outside
@@ -770,20 +770,33 @@ def phase_streaming(pl, ll_host, model, reff: float, res32, res64) -> None:
 
 
 
-def timed_call(what: str, fn, timings: dict):
+def timed_call(what: str, fn, timings: dict, main_path: bool = True):
     """``fn()`` with its wall time (a host clock around a call that ends
-    synchronised) and its peak device memory, printed and kept."""
+    synchronised) and its peak device memory, printed and kept.
+
+    A main-path call is a launch window of its own: the kernels' counters
+    are set to 0 just before it and read just after, so the launches kept
+    beside its time are that call's alone and none of a check's.
+    """
     import torch
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    if main_path:
+        zero_counts()
     t = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     peak = torch.cuda.max_memory_allocated() / 1e9
     timings[what] = {"wall_s": wall, "peak_gb": peak}
-    print(f"  time  {what}: {wall:.3f} s wall, peak device memory {peak:.2f} GB", flush=True)
+    launched = ""
+    if main_path:
+        got = read_counts()
+        timings[what]["launches"] = {name: got[name] for name in "ABCD"}
+        launched = ", launches " + " ".join(f"{name} {got[name]}" for name in "ABCD")
+    print(f"  time  {what}: {wall:.3f} s wall, peak device memory {peak:.2f} GB{launched}",
+          flush=True)
     return out
 
 
@@ -828,8 +841,6 @@ def phase_weights(pl, ll_host, beta, res32, smi: str, n_rows: int = 262_144,
     loo_i32, k32 = res32.loo_i.values[:n_rows], res32.pareto_k.values[:n_rows]
     timings: dict = {}
     lse = lambda a: torch.logsumexp(a, dim=1)  # noqa: E731
-
-    zero_counts()
 
     # psislw against loo(): the float32 envelope of phase 3 (k 2e-3, elpd rtol/atol 1e-4)
     lw, k = timed_call("psislw", lambda: pl.psislw(neg, reff=reff), timings)
@@ -943,17 +954,20 @@ def phase_weights(pl, ll_host, beta, res32, smi: str, n_rows: int = 262_144,
               f" |d k| {d_k:.3g} (2e-3)")
     del idata_all
 
-    got = read_counts()
-    print(f"  count launches of the kernels in phase 6: A {got['A']}, B {got['B']}, C {got['C']},"
-          f" D {got['D']} (this path selects with indices: torch.topk; loo_group's exact scorer"
-          f" selects values, in float32 through kernel B)", flush=True)
+    launched = {what: t["launches"] for what, t in timings.items() if any(t["launches"].values())}
+    print(f"  count launches of the kernels in phase 6, each public call a window of its own: "
+          + ("; ".join(what + ": " + " ".join(f"{name} {n}" for name, n in got.items() if n)
+                       for what, got in launched.items()) or "none")
+          + f"; the other {len(timings) - len(launched)} calls launch none of A to D (this path"
+          f" selects with indices: torch.topk; loo_group's exact scorer selects values, in"
+          f" float32 through kernel B)", flush=True)
 
     # float64 on the card against the CPU: 4,096 rows and 512 rows with ties
     pl.rcParams["device.precision"] = "float64"
     rows64 = neg[:n_cut].astype(np.float64)
     rows64 = np.concatenate([rows64, np.round(rows64[:512], 2)])
     lw_card, k_card = timed_call(f"psislw float64 ({rows64.shape[0]} rows)",
-                                 lambda: pl.psislw(rows64, reff=reff), timings)
+                                 lambda: pl.psislw(rows64, reff=reff), timings, main_path=False)
     t = time.perf_counter()
     lw_cpu, k_cpu = on_cpu(pl, lambda: pl.psislw(rows64, reff=reff))
     print(f"  time  the same call on the CPU: {time.perf_counter() - t:.3f} s", flush=True)
@@ -971,13 +985,13 @@ def phase_weights(pl, ll_host, beta, res32, smi: str, n_rows: int = 262_144,
     from pyloo_tpu_torch.parallel import apply_rowwise
 
     matrix = timed_call("psislw, its parts: as_sample_matrix (the copy in)",
-                        lambda: as_sample_matrix(neg), timings)
+                        lambda: as_sample_matrix(neg)[0], timings, main_path=False)
     on_card = timed_call(
         "psislw, its parts: apply_rowwise(psislw_batch) (the device work)",
         lambda: apply_rowwise(lambda b: psislw_batch(b, m_tail), matrix,
-                              extra_buffers=_WEIGHTS_EXTRA_BUFFERS), timings)
+                              extra_buffers=_WEIGHTS_EXTRA_BUFFERS), timings, main_path=False)
     timed_call("psislw, its parts: the weights' copy to the host",
-               lambda: on_card[0].cpu().numpy(), timings)
+               lambda: on_card[0].cpu().numpy(), timings, main_path=False)
     del on_card
     x = matrix[:65_536] - matrix[:65_536].amax(dim=1, keepdim=True)
     vals, _, xcutoff = _select_tail(x, m_tail)
@@ -998,16 +1012,20 @@ def phase_weights(pl, ll_host, beta, res32, smi: str, n_rows: int = 262_144,
                        tail_length(width) + 1))
     shapes.append(("float64", x[:32_768].double(), m_tail + 1))
     del x
+    def row_sort(x, k):  # the alternative: one stable descending sort of the row, cut at k
+        vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+        return vals[..., :k].contiguous(), idx[..., :k].contiguous()
+
     for what, x, k in shapes:
-        by = {variant: topk_with_idx(x, k, variant=variant) for variant in ("topk", "sort")}
-        strict = by["sort"][0] > by["sort"][0][:, -1:]
-        check(torch.equal(by["topk"][0], by["sort"][0])
-              and torch.equal(by["topk"][1][strict], by["sort"][1][strict]),
-              f"topk_with_idx {tuple(x.shape)} k={k}, {what}: both tie orders give the same"
-              f" values, and the same indices above the k-th value")
-        del by, strict
-        ms = {name: median_ms(lambda: topk_with_idx(x, k, variant=variant))
-              for name, variant in (("topk", "topk"), ("sort", "sort"), ("topk again", "topk"))}
+        got, alt = topk_with_idx(x, k), row_sort(x, k)
+        strict = alt[0] > alt[0][:, -1:]
+        check(torch.equal(got[0], alt[0]) and torch.equal(got[1][strict], alt[1][strict]),
+              f"topk_with_idx {tuple(x.shape)} k={k}, {what}: the values of a stable descending"
+              f" row sort cut at k, and its indices above the k-th value")
+        del got, alt, strict
+        ms = {name: median_ms(lambda: fn(x, k))
+              for name, fn in (("topk_with_idx", topk_with_idx), ("row sort", row_sort),
+                               ("topk_with_idx again", topk_with_idx))}
         ms["torch.topk alone"] = median_ms(lambda: torch.topk(x, k, dim=1))
         print(f"  time  topk_with_idx {tuple(x.shape)} k={k}, {what}: "
               + ", ".join(f"{name} {t:.3f} ms" for name, t in ms.items()), flush=True)

@@ -43,8 +43,10 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
-def as_sample_matrix(log_weights, rebuild: bool = False):
-    """``(n_obs_flat, S)`` tensor of the configured dtype on the configured device.
+def as_sample_matrix(log_weights):
+    """``(matrix, S, rebuild)``: the ``(n_obs_flat, S)`` tensor, S, and the way back.
+
+    The tensor has the configured dtype and lies on the configured device.
 
     Accepts a :class:`DataArray` (``__sample__`` dim anywhere, or unstacked
     ``chain``/``draw`` dims) or an array whose *last* axis is samples.  A
@@ -56,7 +58,6 @@ def as_sample_matrix(log_weights, rebuild: bool = False):
     On the CPU the tensor may share memory with the caller's array: nothing
     writes into it.
 
-    With ``rebuild=True`` returns ``(matrix, S, rebuild)``, where
     ``rebuild(lw2d, diag1d)`` restores the caller's container and shape from
     host arrays: ``(lw, diag)`` as :class:`DataArray` for a
     :class:`DataArray`, as ndarrays otherwise (``lw`` is ``None`` when
@@ -90,8 +91,6 @@ def as_sample_matrix(log_weights, rebuild: bool = False):
                 da = da.transpose(*target)
             values = da.values.reshape(-1, S) if obs_dims else da.values.reshape(1, S)
             matrix = torch.from_numpy(np.ascontiguousarray(values)).to(device, dtype)
-        if not rebuild:
-            return matrix
 
         def rebuild_da(lw2d, diag1d):
             lw_da = None
@@ -113,8 +112,6 @@ def as_sample_matrix(log_weights, rebuild: bool = False):
     obs_shape = arr.shape[:-1]
     S = arr.shape[-1]
     matrix = torch.from_numpy(np.ascontiguousarray(arr.reshape(-1, S))).to(device, dtype)
-    if not rebuild:
-        return matrix
 
     def rebuild_array(lw2d, diag1d):
         lw = None if lw2d is None else np.asarray(lw2d).reshape(obs_shape + (S,))
@@ -164,7 +161,7 @@ def compute_importance_weights(
     if log_weights is None:
         raise ValueError("log_weights must be provided")
 
-    matrix, n_samples, rebuild = as_sample_matrix(log_weights, rebuild=True)
+    matrix, n_samples, rebuild = as_sample_matrix(log_weights)
     if n_samples < 2:
         raise ValueError(
             "importance sampling requires at least 2 draws per observation,"

@@ -126,8 +126,8 @@ def _reduce_loo_weights(data, var_name, reff, reduce, *others):
     inference_data = to_inference_data(data)
     ll_da = get_log_likelihood(inference_data, var_name=var_name)
     ll_da = ll_da.stack(__sample__=("chain", "draw"))
-    matrix = clean_log_likelihood(as_sample_matrix(ll_da), context="LOO")
-    n_samples = matrix.shape[1]
+    matrix, n_samples, _ = as_sample_matrix(ll_da)
+    matrix = clean_log_likelihood(matrix, context="LOO")
     m_tail = tail_length(n_samples, compute_reff(inference_data, reff, n_samples))
     extra = tuple(make(matrix) for make in others)
 

@@ -74,8 +74,8 @@ def _as_matrix_pair(x_da, lw_da):
     mirroring the reference's xarray broadcasting (e_loo.py:429-436): the
     result is then h's expectation under each observation's LOO weights.
     """
-    x_matrix, S_x, x_rebuild = as_sample_matrix(x_da, rebuild=True)
-    lw_matrix, S_w, lw_rebuild = as_sample_matrix(lw_da, rebuild=True)
+    x_matrix, S_x, x_rebuild = as_sample_matrix(x_da)
+    lw_matrix, S_w, lw_rebuild = as_sample_matrix(lw_da)
     if S_x != S_w:
         raise ValueError(f"x has {S_x} draws but log_weights has {S_w}")
     if x_matrix.shape != lw_matrix.shape:
@@ -233,7 +233,7 @@ def e_loo(
     # diagnostics ---------------------------------------------------------
     if log_ratios is not None:
         del lw_matrix
-        lr_matrix = as_sample_matrix(
+        lr_matrix, _, _ = as_sample_matrix(
             log_ratios
             if isinstance(log_ratios, DataArray)
             else DataArray(np.asarray(log_ratios))
@@ -294,10 +294,10 @@ def compute_pareto_k(x, log_ratios, tail_len: int = 20):
     if tail_len < 5:
         raise ValueError("tail_len must be at least 5")
     if isinstance(log_ratios, DataArray):
-        lr_matrix, _, rebuild = as_sample_matrix(log_ratios, rebuild=True)
+        lr_matrix, _, rebuild = as_sample_matrix(log_ratios)
         x_matrix = None
         if x is not None:
-            x_matrix = as_sample_matrix(
+            x_matrix, _, _ = as_sample_matrix(
                 x if isinstance(x, DataArray) else DataArray(np.asarray(x))
             )
         _, k_da = rebuild(None, _khat_rows(x_matrix, lr_matrix, tail_len))
@@ -309,15 +309,15 @@ def compute_pareto_k(x, log_ratios, tail_len: int = 20):
         xx = np.atleast_2d(np.asarray(x))
         if xx.shape != lr.shape:
             raise ValueError("x and log_ratios must have the same shape")
-        xx = as_sample_matrix(xx)
-    k = _khat_rows(xx, as_sample_matrix(lr), tail_len)
+        xx = as_sample_matrix(xx)[0]
+    k = _khat_rows(xx, as_sample_matrix(lr)[0], tail_len)
     return float(k[0]) if np.asarray(log_ratios).ndim == 1 else k
 
 
 def k_hat(x_vals, log_ratios_vals, tail_len: int = 20) -> float:
     """Scalar-path Pareto k for one observation (reference e_loo.py:328-390)."""
-    lr = as_sample_matrix(np.asarray(log_ratios_vals)[None, :])
-    x = None if x_vals is None else as_sample_matrix(np.asarray(x_vals)[None, :])
+    lr = as_sample_matrix(np.asarray(log_ratios_vals)[None, :])[0]
+    x = None if x_vals is None else as_sample_matrix(np.asarray(x_vals)[None, :])[0]
     return float(_khat_rows(x, lr, tail_len)[0])
 
 

@@ -66,7 +66,8 @@ def elpd(
     n_samples = shape[-1]
     n_data_points = int(np.prod(shape[:-1]))
 
-    matrix = clean_log_likelihood(as_sample_matrix(log_likelihood), context="ELPD")
+    matrix, _, _ = as_sample_matrix(log_likelihood)
+    matrix = clean_log_likelihood(matrix, context="ELPD")
     (lse,) = apply_rowwise(lambda block: (logsumexp(block, dim=1),), matrix)
     lpd_i = _host(lse) - np.log(n_samples)
     elpd_i = DataArray(

@@ -132,7 +132,8 @@ def loo(
         valid_methods = ", ".join(m.value for m in ISMethod)
         raise ValueError(f"Invalid method '{method}'. Must be one of: {valid_methods}")
 
-    matrix = clean_log_likelihood(as_sample_matrix(log_likelihood), context="LOO")
+    matrix, _, _ = as_sample_matrix(log_likelihood)
+    matrix = clean_log_likelihood(matrix, context="LOO")
 
     if method != ISMethod.PSIS:
         method_name = method.value.upper()

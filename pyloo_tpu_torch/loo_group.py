@@ -65,7 +65,8 @@ def loo_group(
     n_groups = len(unique_groups)
 
     reff = compute_reff(inference_data, reff, n_samples)
-    matrix = clean_log_likelihood(as_sample_matrix(log_likelihood), context="LOGO")  # (N, S)
+    matrix, _, _ = as_sample_matrix(log_likelihood)  # (N, S)
+    matrix = clean_log_likelihood(matrix, context="LOGO")
 
     try:
         method = method if isinstance(method, ISMethod) else ISMethod(method.lower())

@@ -72,7 +72,8 @@ def loo_i(
 
     scale, scale_value = resolve_scale(scale)
     reff = compute_reff(inference_data, reff, n_samples)
-    row = clean_log_likelihood(as_sample_matrix(_obs_row(log_likelihood, i)), context="LOO")
+    row, _, _ = as_sample_matrix(_obs_row(log_likelihood, i))
+    row = clean_log_likelihood(row, context="LOO")
     ll_i = DataArray(_host(row), ("obs", "__sample__"))
 
     try:

@@ -58,39 +58,27 @@ def topk_vals_desc(x: torch.Tensor, k: int) -> torch.Tensor:
     return torch.topk(x, k, dim=-1, sorted=True).values
 
 
-# How topk_with_idx puts tied values in index order.  "topk": torch.topk,
-# then two stable sorts over the narrow (B, k) result (by index, then by
-# value descending).  "sort": one stable descending sort of the whole row,
-# cut at k.  Same values either way.  On an NVIDIA H100 80GB HBM3 at 700 W
-# (chip_smoke.py, phase 6) "sort" is 1.7 ms faster at 65,536 x 4,000 float32
-# (8.9 against 10.6 ms) and 4 to 5 times slower past 4,096 draws (22.2
-# against 5.1 ms at 16,384 x 16,000), and it holds the row's values and
-# int64 indices besides: "topk" at every width.
-TIE_ORDER_VARIANT = "topk"
-
-
-def topk_with_idx(x: torch.Tensor, k: int, variant: str | None = None):
+def topk_with_idx(x: torch.Tensor, k: int):
     """Exact top-k values and source indices per row, descending.
 
     Like ``jax.lax.top_k``: within each run of equal values the indices
     ascend.  ``_smoothed_tail_desc`` depends on that order (its plotting
     positions reverse each tied run to match a stable ascending argsort),
     and ``torch.topk`` promises no order among ties, so the order is made
-    here, on the CPU and on the card alike.
+    here, on the CPU and on the card alike: ``torch.topk``, then two stable
+    sorts over the narrow (B, k) result, by index and then by value
+    descending.  (A stable descending sort of the whole row cut at k gives
+    the same order.  On an NVIDIA H100 80GB HBM3 at 700 W, ``chip_smoke.py``
+    phase 6, it is 1.7 ms faster at 65,536 x 4,000 float32, 8.9 against
+    10.6 ms, and 4 to 5 times slower past 4,096 draws, 22.2 against 5.1 ms
+    at 16,384 x 16,000, and it holds the row's int64 indices besides.)
 
-    One difference from ``lax.top_k`` remains with ``variant="topk"``: when
-    a run of equal values straddles slot ``k``, *which* members of the run
-    are returned is ``torch.topk``'s choice (``lax.top_k`` and
-    ``variant="sort"`` take the lowest indices).  In PSIS those members equal
-    the cutoff, are outside the strict tail and are written back unchanged,
-    so the weights do not depend on the choice.
+    One difference from ``lax.top_k`` remains: when a run of equal values
+    straddles slot ``k``, *which* members of the run are returned is
+    ``torch.topk``'s choice (``lax.top_k`` takes the lowest indices).  In
+    PSIS those members equal the cutoff, are outside the strict tail and are
+    written back unchanged, so the weights do not depend on the choice.
     """
-    variant = TIE_ORDER_VARIANT if variant is None else variant
-    if variant == "sort":
-        vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-        return vals[..., :k].contiguous(), idx[..., :k].contiguous()
-    if variant != "topk":
-        raise ValueError(f"unknown variant {variant!r}")
     vals, idx = torch.topk(x, k, dim=-1, sorted=True)
     idx, by_index = torch.sort(idx, dim=-1, stable=True)
     vals, by_value = torch.sort(

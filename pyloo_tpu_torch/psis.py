@@ -203,8 +203,7 @@ def psislw_compact(log_weights, reff: float = 1.0) -> CompactWeights:
     Observation dims are flattened into the leading axis of every output
     (reshape with the caller's obs shape to restore).
     """
-    matrix = as_sample_matrix(log_weights)
-    n_samples = matrix.shape[1]
+    matrix, n_samples, _ = as_sample_matrix(log_weights)
     if n_samples < 2:
         raise ValueError(
             "importance sampling requires at least 2 draws per observation,"

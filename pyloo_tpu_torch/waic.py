@@ -48,9 +48,8 @@ def waic(
     n_data_points = int(np.prod(shape[:-1]))
     scale, scale_value = resolve_scale(scale)
 
-    matrix = clean_log_likelihood(
-        as_sample_matrix(log_likelihood), context="WAIC", clean_inf=True
-    )
+    matrix, _, _ = as_sample_matrix(log_likelihood)
+    matrix = clean_log_likelihood(matrix, context="WAIC", clean_inf=True)
     lppd_i, vars_lpd = map(_host, apply_rowwise(waic_scores, matrix))
     del matrix
 
