@@ -44,7 +44,19 @@ Phases:
    each held to a number the run already has or to the CPU on a 4,096-row
    cut; the wall time, peak device memory and kernel launches of each call
    (each a launch window of its own; this path selects with indices, through
-   ``torch.topk``), and ``topk_with_idx`` timed against a stable row sort.
+   ``torch.topk``), and ``topk_with_idx`` timed against a stable row sort;
+7. scoring and model comparison, each call a launch window of its own:
+   ``loo_compare_streaming`` with ``ic="loo"`` and ``ic="waic"`` on phase 5's
+   model and a worse one (features 16-31 of every draw set to 0) at
+   1,000,000 x 4,000, stacked by the EM solver on the card; ``loo_compare``
+   on the stored first 250,000 rows of each model, and SLSQP, BB-pseudo-BMA
+   and pseudo-BMA on a 50,000-row cut against the CPU; ``loo_score_streaming``
+   (posterior-predictive draws Bernoulli(sigmoid(eta)) from a counter-based
+   hash, two permutations, CRPS and SCRPS) held to ``loo_score`` on a stored
+   65,536-row cut and, in float64 on 4,096 rows, to the CPU, with one chunk's
+   time split into generators, ``psislw_batch`` and means; ``loo_lfo`` at
+   10,000 time points x 4,000 float64 (M = 1 and 4), its first 1,024 targets
+   held to the CPU on the series cut after them.
 
 Every main path runs with the kernels' launch counters set to 0 just before
 it and read just after; comparisons with the plain versions run outside
@@ -648,7 +660,7 @@ def phase_float64(pl, ll_host, beta, res32):
     return res
 
 
-def phase_streaming(pl, ll_host, model, reff: float, res32, res64) -> None:
+def phase_streaming(pl, ll_host, model, reff: float, res32, res64) -> dict:
     import numpy as np
     import torch
 
@@ -738,6 +750,7 @@ def phase_streaming(pl, ll_host, model, reff: float, res32, res64) -> None:
         f" {ll_rows_differ} rows of the made log-likelihood differ from phase 2's;"
         f" loo_i differs at all on {(e_s != e_l).sum()} rows",
     )
+    phase5 = {"elpd_loo": res["elpd_loo"], "n_chunks": n_chunks, "chunk": chunk}
     del res
 
     print("phase 5b: loo_streaming over the first 250,000 rows of the phase-2 matrix",
@@ -767,6 +780,7 @@ def phase_streaming(pl, ll_host, model, reff: float, res32, res64) -> None:
             f" max |d k| {np.nan_to_num(np.abs(k - k_ref), posinf=0).max():.3g}",
         )
         del src, out
+    return phase5
 
 
 
@@ -821,7 +835,7 @@ def on_cpu(pl, fn):
 
 
 def phase_weights(pl, ll_host, beta, res32, smi: str, n_rows: int = 262_144,
-                  n_cut: int = 4_096) -> None:
+                  n_cut: int = 4_096):
     import numpy as np
     import torch
 
@@ -1031,6 +1045,334 @@ def phase_weights(pl, ll_host, beta, res32, smi: str, n_rows: int = 262_144,
               + ", ".join(f"{name} {t:.3f} ms" for name, t in ms.items()), flush=True)
     del shapes, x
     print(f"  card  {smi}", flush=True)
+    return waic
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mix32(h):
+    """A 32-bit integer hash (two multiply-xorshift rounds) of an int64
+    tensor of values below 2**32; the products stay below 2**63."""
+    h = ((h ^ (h >> 16)) * 0x45D9F3B) & _M32
+    h = ((h ^ (h >> 16)) * 0x45D9F3B) & _M32
+    return h ^ (h >> 16)
+
+
+def bernoulli_draws(idx, eta, which: int):
+    """Posterior-predictive draws Bernoulli(sigmoid(eta)) of the rows ``idx``,
+    from a counter-based hash of (row, draw, set): a row's draws are the same
+    whenever and in whatever chunk they are made."""
+    import torch
+
+    draws = torch.arange(eta.shape[1], device=eta.device, dtype=torch.int64)
+    row = _mix32((idx.to(torch.int64) * 2 + which) & _M32)
+    h = _mix32(row[:, None] ^ ((draws * 0x9E3779B1) & _M32)[None, :])
+    u = (h >> 8).to(torch.float32) * 2.0**-24
+    return (u < torch.sigmoid(eta)).to(eta.dtype)
+
+
+def phase_scoring(pl, ll_host, beta, model, reff: float, res32, phase5: dict, waic32,
+                  smi: str) -> None:
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from pyloo_tpu_torch.compare import _DEVICE_SOLVER_MIN_OBS
+    from pyloo_tpu_torch.ops import stacking
+    from pyloo_tpu_torch.ops.psis import psislw_batch, tail_length
+    from pyloo_tpu_torch.streaming import _chunks
+    from pyloo_tpu_torch.streaming.score import SCORE_CHUNK_BUDGET
+
+    score_mod = sys.modules["pyloo_tpu_torch.loo_score"]
+    stream_compare = sys.modules["pyloo_tpu_torch.streaming.compare"]
+    xw, yw, beta_c = model
+    chains, draws = beta_c.shape[0], beta_c.shape[1]
+    n_obs, s = xw.shape[0], chains * draws
+    print(f"phase 7: scoring and model comparison at {n_obs} x {s} ({smi})", flush=True)
+    pl.rcParams["device.device"] = "cuda"
+    pl.rcParams["device.precision"] = "float32"
+    beta1 = beta_c.reshape(s, -1)  # sample = chain * draws + draw, as loo() stacks them
+    beta2 = beta1.clone()
+    beta2[:, 16:] = 0.0  # model 2: features 16-31 dropped from every draw
+    # model 2's posterior: the 16 features it keeps (the dropped ones are constant)
+    beta2_host = beta2.reshape(chains, draws, -1)[:, :, :16].cpu().numpy()
+    zero = xw.new_zeros(())
+
+    def log_lik(b):
+        def fn(idx):
+            eta = xw[idx] @ b.T  # (chunk, S), full float32 (no TF32)
+            return yw[idx, None] * eta - torch.logaddexp(eta, zero)
+        return fn
+
+    def predictive(which):
+        return lambda idx: bernoulli_draws(idx, xw[idx] @ beta1.T, which)
+
+    ll1, ll2, x_fn, x2_fn = log_lik(beta1), log_lik(beta2), predictive(0), predictive(1)
+    timings: dict = {}
+
+    # the EM solver's calls and the elpds loo_compare_streaming ranks, recorded
+    em_calls, captured = [], {}
+    real_em, real_compare = stacking._em_solve, stream_compare.loo_compare
+
+    def recording_em(exp_elpds, max_iters, tol):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        w, turns = real_em(exp_elpds, max_iters, tol)
+        torch.cuda.synchronize()
+        em_calls.append({"device": exp_elpds.device.type, "shape": tuple(exp_elpds.shape),
+                         "turns": turns, "s": time.perf_counter() - t})
+        return w, turns
+
+    def capturing_compare(elpds, **kwargs):
+        captured.clear()
+        captured.update(elpds)
+        return real_compare(elpds, **kwargs)
+
+    stacking._em_solve, stream_compare.loo_compare = recording_em, capturing_compare
+    try:
+        # (a) loo_compare_streaming, ic="loo", stacking
+        print("phase 7a: loo_compare_streaming, ic='loo', stacking, models 1 and 2", flush=True)
+        table = timed_call("loo_compare_streaming (loo, stacking)", lambda: pl.loo_compare_streaming(
+            {"m1": ll1, "m2": ll2}, n_obs, s, reff=reff, dtype="float32"), timings)
+        got = timings["loo_compare_streaming (loo, stacking)"]["launches"]
+        want_a = 2 * phase5["n_chunks"]
+        check(got["A"] == want_a and got["B"] == got["C"] == got["D"] == 0,
+              f"kernel A launched {got['A']} times ({want_a}: 2 models x phase 5's"
+              f" {phase5['n_chunks']} chunks); B {got['B']}, C {got['C']}, D {got['D']}")
+        em = em_calls[-1] if em_calls else {}
+        check(len(em_calls) == 1 and em["device"] == "cuda" and n_obs >= _DEVICE_SOLVER_MIN_OBS,
+              f"stacking by the EM solver on the card ({em.get('shape')}, {em.get('turns')} turns,"
+              f" {1e3 * em.get('s', 0):.1f} ms; n_obs {n_obs} >= {_DEVICE_SOLVER_MIN_OBS})")
+        m1 = captured["m1"]
+        check(m1["elpd_loo"] == phase5["elpd_loo"],
+              f"model 1's elpd_loo {m1['elpd_loo']:.6f} equals phase 5's {phase5['elpd_loo']:.6f}")
+        again = pl.loo_compare(dict(captured))
+        same = again.index == table.index and all(
+            np.array_equal(again[c], table[c]) for c in table.columns)
+        check(same, "the table equals loo_compare over the two streaming ELPDData (precomputed)")
+        mixed = pl.loo_compare({"m1": res32, "m2": captured["m2"]})
+        d_w = np.abs(mixed["weight"] - table["weight"]).max()
+        d_e = np.abs(mixed["elpd_loo"] / table["elpd_loo"] - 1).max()
+        check(mixed.index == table.index and d_w <= 1e-3 and d_e <= 1e-6,
+              f"the table over phase 2's loo() for model 1: max |d weight| {d_w:.3g} (1e-3),"
+              f" max rel d elpd_loo {d_e:.3g} (1e-6)")
+        print("  table\n" + "\n".join("    " + line for line in str(table).splitlines()),
+              flush=True)
+        captured_loo = dict(captured)
+
+        # (b) the same with ic="waic"
+        print("phase 7b: loo_compare_streaming, ic='waic'", flush=True)
+        table_w = timed_call("loo_compare_streaming (waic, stacking)",
+                             lambda: pl.loo_compare_streaming({"m1": ll1, "m2": ll2}, n_obs, s,
+                                                              ic="waic", dtype="float32"), timings)
+        got = timings["loo_compare_streaming (waic, stacking)"]["launches"]
+        check(not any(got.values()), f"waic streaming launches none of A-D ({got})")
+        w_s, w_l = captured["m1"].waic_i.values, waic32.waic_i.values
+        d = np.abs(w_s - w_l)
+        check(np.allclose(w_s, w_l, rtol=1e-4, atol=1e-4),
+              f"model 1's waic_i against phase 6's stored waic (rtol/atol 1e-4: max |d|"
+              f" {d.max():.3g}, {(d > 0).sum()} rows differ at all); elpd_waic"
+              f" {table_w['elpd_waic'][0]:.3f}, {em_calls[-1]['turns']} EM turns")
+    finally:
+        stacking._em_solve, stream_compare.loo_compare = real_em, real_compare
+
+    # (c) loo_compare on stored matrices
+    n_rows, n_cut = 250_000, 50_000
+    print(f"phase 7c: loo_compare on the stored first {n_rows} rows of each model", flush=True)
+    ll2_host = np.empty((chains, draws, n_rows), np.float32)
+    for start in range(0, n_rows, 50_000):
+        block = ll2(torch.arange(start, min(start + 50_000, n_rows), device="cuda"))
+        ll2_host[:, :, start : start + block.shape[0]] = (
+            block.T.reshape(chains, draws, -1).cpu().numpy())
+        del block
+    ll1_host = np.ascontiguousarray(ll_host[:, :, :n_rows])
+    stored = {"m1": pl.from_dict(posterior={"beta": beta}, log_likelihood={"y": ll1_host}),
+              "m2": pl.from_dict(posterior={"beta": beta2_host}, log_likelihood={"y": ll2_host})}
+    n_em = len(em_calls)
+    stacking._em_solve = recording_em
+    try:
+        table_c = timed_call(f"loo_compare (stored {n_rows} rows, stacking)",
+                             lambda: pl.loo_compare(stored), timings)
+    finally:
+        stacking._em_solve = real_em
+    got = timings[f"loo_compare (stored {n_rows} rows, stacking)"]["launches"]
+    check(got["A"] == 4 and got["B"] == got["C"] == got["D"] == 0 and len(em_calls) == n_em + 1,
+          f"loo() per model: kernel A launched {got['A']} times (2 a model), B {got['B']};"
+          f" stacking by the EM solver on the card ({em_calls[-1]['turns']} turns)")
+    want = float(np.sum(res32.loo_i.values[:n_rows], dtype=np.float64))
+    i1 = table_c.index.index("m1")
+    check(abs(table_c["elpd_loo"][i1] / want - 1) <= 1e-6,
+          f"model 1's elpd_loo {table_c['elpd_loo'][i1]:.4f} is the sum of phase 2's first"
+          f" {n_rows} loo_i ({want:.4f} summed in float64; loo() sums in float32: rel 1e-6)")
+    print("  table\n" + "\n".join("    " + line for line in str(table_c).splitlines()),
+          flush=True)
+    del stored
+
+    # a 50,000-row cut: SLSQP below the device solver's threshold, and the
+    # pseudo-BMA weights, each against the same call on the CPU
+    cut = {name: pl.from_dict(posterior={"beta": post},
+                              log_likelihood={"y": np.ascontiguousarray(ll[:, :, :n_cut])})
+           for name, ll, post in (("m1", ll1_host, beta), ("m2", ll2_host, beta2_host))}
+    del ll1_host, ll2_host
+    card = {name: pl.loo(idata, pointwise=True) for name, idata in cut.items()}
+    t = time.perf_counter()
+    cpu = on_cpu(pl, lambda: {name: pl.loo(idata, pointwise=True) for name, idata in cut.items()})
+    print(f"  time  loo() of the two {n_cut}-row cuts on the CPU: {time.perf_counter() - t:.3f} s",
+          flush=True)
+    for method in ("stacking", "bb-pseudo-bma", "pseudo-bma"):
+        on_card = timed_call(f"loo_compare ({n_cut}-row cut, {method})",
+                             lambda: pl.loo_compare(card, method=method, seed=7), timings)
+        on_host = on_cpu(pl, lambda: pl.loo_compare(cpu, method=method, seed=7))
+        d_w = np.abs(on_card["weight"] - on_host["weight"]).max()
+        d_e = np.abs(on_card["elpd_loo"] / on_host["elpd_loo"] - 1).max()
+        d_se = np.abs(on_card["se"] / on_host["se"] - 1).max()
+        check(on_card.index == on_host.index and d_w <= 1e-4 and d_e <= 1e-6 and d_se <= 1e-4,
+              f"{method} on the {n_cut}-row cut against the CPU: weights"
+              f" {np.round(on_card['weight'], 6).tolist()}, max |d weight| {d_w:.3g} (1e-4),"
+              f" max rel d elpd_loo {d_e:.3g} (1e-6), se {d_se:.3g} (1e-4)")
+    check(len(em_calls) == n_em + 1, "the 50,000-row stacking ran SLSQP on the host, not the"
+          " EM solver")
+    del cut, card, cpu
+
+    # (d) loo_score_streaming at full size, held to loo_score on a stored cut
+    chunk, n_chunks = _chunks.resolve_chunk(None, n_obs, s, torch.float32,
+                                            budget=SCORE_CHUNK_BUDGET)
+    print(f"phase 7d: loo_score_streaming at {n_obs} x {s} float32, P = 2 ({n_chunks} chunks of"
+          f" {chunk})", flush=True)
+    y_host = yw.cpu().numpy()
+    m_tail = tail_length(s, reff)
+    scores = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the Pareto-k warning; the counts are printed
+        for scale in (False, True):
+            what = f"loo_score_streaming (P=2, scale={scale})"
+            scores[scale] = timed_call(what, lambda: pl.loo_score_streaming(
+                ll1, x_fn, x2_fn, y_host, n_obs, s, permutations=2, reff=reff, scale=scale,
+                seed=11, dtype="float32"), timings)
+            res = scores[scale]
+            got = timings[what]["launches"]
+            check(not any(got.values()) and res.pointwise.shape == (n_obs,)
+                  and np.isfinite(res.pointwise).all(),
+                  f"{what}: launches none of A-D ({got}); {n_obs} finite scores, estimate"
+                  f" {res.estimates['Estimate']:.6f} (SE {res.estimates['SE']:.3g});"
+                  f" {int((res.pareto_k > res.good_k).sum())} rows with k > {res.good_k:.2f}")
+
+        # the stored cut: the same generator calls, chunk by chunk, so its rows
+        # are those the streaming run scored
+        n_store, n_64 = 65_536, 4_096
+        made = {"ll": [], "x": [], "x2": []}
+        for c in range(-(-n_store // chunk)):
+            idx, _ = _chunks.chunk_indices(c, chunk, n_obs, torch.device("cuda"))
+            for name, fn in (("ll", ll1), ("x", x_fn), ("x2", x2_fn)):
+                made[name].append(fn(idx).cpu())
+        rows = {name: torch.cat(parts)[:n_store].numpy() for name, parts in made.items()}
+        del made
+
+        def as_idata(n, dtype):
+            cdo = {name: np.ascontiguousarray(a[:n].T).astype(dtype).reshape(chains, draws, n)
+                   for name, a in rows.items()}
+            return pl.from_dict(posterior={"beta": beta}, log_likelihood={"y": cdo["ll"]},
+                                posterior_predictive={"y": cdo["x"], "y2": cdo["x2"]},
+                                observed_data={"y": y_host[:n].astype(dtype)},
+                                dims={"y": ["obs"], "y2": ["obs"]})
+
+        idata = as_idata(n_store, np.float32)
+        kw = dict(x_var="y", x2_var="y2", permutations=2, reff=reff, seed=11, pointwise=True)
+        for scale in (False, True):
+            stored_score = timed_call(f"loo_score (stored {n_store} rows, scale={scale})",
+                                      lambda: pl.loo_score(idata, scale=scale, **kw), timings)
+            got = timings[f"loo_score (stored {n_store} rows, scale={scale})"]["launches"]
+            a, b = stored_score.pointwise, scores[scale].pointwise[:n_store]
+            ka, kb = stored_score.pareto_k.values, scores[scale].pareto_k[:n_store]
+            check(not any(got.values()) and np.allclose(a, b, rtol=1e-5, atol=1e-6)
+                  and np.allclose(ka, kb, rtol=0, atol=1e-4),
+                  f"scale={scale}: loo_score_streaming's first {n_store} rows against loo_score"
+                  f" on them stored (rtol 1e-5, atol 1e-6: max |d| {np.abs(a - b).max():.3g},"
+                  f" {(a != b).sum()} rows differ at all; k atol 1e-4: max |d k|"
+                  f" {np.abs(ka - kb).max():.3g}); launches {got}")
+        del idata
+        pl.rcParams["device.precision"] = "float64"
+        idata64 = as_idata(n_64, np.float64)
+        for scale in (False, True):
+            card64 = timed_call(f"loo_score float64 ({n_64} rows, scale={scale})",
+                                lambda: pl.loo_score(idata64, scale=scale, **kw), timings,
+                                main_path=False)
+            t = time.perf_counter()
+            cpu64 = on_cpu(pl, lambda: pl.loo_score(idata64, scale=scale, **kw))
+            cpu_s = time.perf_counter() - t
+            d = np.abs(card64.pointwise - cpu64.pointwise).max()
+            d_k = np.abs(card64.pareto_k.values - cpu64.pareto_k.values).max()
+            check(np.allclose(card64.pointwise, cpu64.pointwise, rtol=1e-12, atol=1e-12)
+                  and np.allclose(card64.pareto_k.values, cpu64.pareto_k.values, rtol=1e-12,
+                                  atol=1e-12),
+                  f"float64 loo_score (scale={scale}) on the card against the CPU ({cpu_s:.2f} s)"
+                  f" within 1e-12: max |d| {d:.3g}, max |d k| {d_k:.3g}")
+        pl.rcParams["device.precision"] = "float32"
+        del idata64, rows
+
+    # where one chunk of loo_score_streaming goes (CUDA events, median of 3)
+    idx, _ = _chunks.chunk_indices(0, chunk, n_obs, torch.device("cuda"))
+    ll, x, x2 = ll1(idx), x_fn(idx), x2_fn(idx)
+    y_dev = yw[idx]
+    perms = torch.from_numpy(score_mod.draw_permutations(11, 2, s)).cuda()
+    stage = {
+        "log_lik_fn": median_ms(lambda: ll1(idx), 3),
+        "x_fn": median_ms(lambda: x_fn(idx), 3),
+        "x2_fn": median_ms(lambda: x2_fn(idx), 3),
+        "psislw_batch (one of 3)": median_ms(lambda: psislw_batch(-ll, m_tail), 3),
+        "_crps_chunk (whole)": median_ms(lambda: score_mod._crps_chunk(
+            ll, x, x2, y_dev, perms, tail_max=m_tail, scale=False), 3),
+    }
+    stage["means and the rest"] = stage["_crps_chunk (whole)"] - 3 * stage["psislw_batch (one of 3)"]
+    del ll, x, x2
+    gen = stage["log_lik_fn"] + stage["x_fn"] + stage["x2_fn"]
+    print(f"  time  one chunk of {chunk} rows: "
+          + ", ".join(f"{name} {ms:.3f} ms" for name, ms in stage.items())
+          + f"; x {n_chunks} chunks: generators {n_chunks * gen / 1e3:.3f} s, psislw_batch"
+          f" {n_chunks * 3 * stage['psislw_batch (one of 3)'] / 1e3:.3f} s, means and the rest"
+          f" {n_chunks * stage['means and the rest'] / 1e3:.3f} s", flush=True)
+
+    # (e) loo_lfo at 10,000 time points x 4,000 draws, float64
+    n_t, L, n_first = 10_000, 1_000, 1_024
+    print(f"phase 7e: loo_lfo at {n_t} x {s} float64, L = {L}", flush=True)
+    pl.rcParams["device.precision"] = "float64"
+    series = np.ascontiguousarray(ll_host[:, :, :n_t]).astype(np.float64)
+    idata_t = pl.from_dict(posterior={"beta": beta}, log_likelihood={"y": series})
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the high-k summary; the count is printed
+        for M in (1, 4):
+            what = f"loo_lfo (L={L}, M={M})"
+            res = timed_call(what, lambda: pl.loo_lfo(idata_t, L=L, M=M, pointwise=True), timings)
+            got = timings[what]["launches"]
+            part = pl.from_dict(posterior={"beta": beta}, log_likelihood={
+                "y": np.ascontiguousarray(series[:, :, : L + n_first + M - 1])})
+            t = time.perf_counter()
+            cpu = on_cpu(pl, lambda: pl.loo_lfo(part, L=L, M=M, pointwise=True))
+            cpu_s = time.perf_counter() - t
+            a, b = res.lfo_i.values[:n_first], cpu.lfo_i.values
+            ka, kb = res.pareto_k[:n_first], cpu.pareto_k
+            check(not any(got.values()) and res["n_data_points"] == n_t - M - L + 1
+                  and np.allclose(a, b, rtol=1e-12, atol=1e-12, equal_nan=True)
+                  and np.allclose(ka, kb, rtol=1e-12, atol=1e-12, equal_nan=True),
+                  f"M={M}: {res['n_data_points']} targets, elpd_lfo {res['elpd_lfo']:.3f},"
+                  f" {int((res.pareto_k > res.good_k).sum())} with k > {res.good_k:.2f};"
+                  f" the first {n_first} against the CPU on the series cut to"
+                  f" {L + n_first + M - 1} rows ({cpu_s:.2f} s) within 1e-12: max |d|"
+                  f" {np.abs(a - b).max():.3g}, max |d k| {np.nan_to_num(np.abs(ka - kb)).max():.3g};"
+                  f" launches {got}")
+    pl.rcParams["device.precision"] = "float32"
+    del series, idata_t
+
+    launched = {what: t["launches"] for what, t in timings.items()
+                if "launches" in t and any(t["launches"].values())}
+    print("  count launches of the kernels in phase 7, each public call a window of its own: "
+          + ("; ".join(what + ": " + " ".join(f"{name} {n}" for name, n in got.items() if n)
+                       for what, got in launched.items()) or "none")
+          + f"; the other {sum('launches' in t for t in timings.values()) - len(launched)}"
+          " calls launch none of A to D", flush=True)
+    print(f"  card  {smi}", flush=True)
 
 
 def phase_baseline(pl):
@@ -1078,6 +1420,15 @@ def main() -> int:
     print(smi, flush=True)
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda},"
           f" {torch.cuda.get_device_name(0)}", flush=True)
+    try:
+        t = time.perf_counter()
+        import scipy
+        import scipy.optimize  # noqa: F401  (imported here so phase 7 times SLSQP alone)
+
+        print(f"  scipy {scipy.__version__} (loo_compare's SLSQP stacking imports it;"
+              f" scipy.optimize imported in {time.perf_counter() - t:.2f} s)", flush=True)
+    except ImportError:
+        print("  scipy is missing: loo_compare's SLSQP stacking cannot run", flush=True)
     t = time.perf_counter()
     _build.load()
     print(f"  build {time.perf_counter() - t:.2f} s into {_build.BUILD_DIR}", flush=True)
@@ -1124,10 +1475,11 @@ def main() -> int:
     reff = compute_reff(pl.from_dict(posterior={"beta": beta}), None, beta.shape[0] * beta.shape[1])
     res64 = phase_float64(pl, ll_host, beta, res32)
     phase_baseline(pl)
-    phase_streaming(pl, ll_host, model, reff, res32, res64)
-    del model, res64
-    phase_weights(pl, ll_host, beta, res32, smi)
-    del ll_host
+    phase5 = phase_streaming(pl, ll_host, model, reff, res32, res64)
+    del res64
+    waic32 = phase_weights(pl, ll_host, beta, res32, smi)
+    phase_scoring(pl, ll_host, beta, model, reff, res32, phase5, waic32, smi)
+    del ll_host, model
 
     for key, kern in kernels.items():
         kern["launches"] = PATH_LAUNCHES[KERNEL_COUNTERS[key]]

@@ -7,6 +7,9 @@ weights themselves (``psislw``, ``psislw_compact``, ``sislw``, ``tislw``,
 ``compute_importance_weights``) and what reads them (``e_loo``,
 ``loo_predictive_metric``, ``loo_i``, ``loo_group``, ``waic``, ``elpd``,
 ``mcse_loo``, ``psis_ess_values``, ``loo_pit`` and the Pareto-k accessors),
+scoring and model comparison (``loo_score``, ``crps``, ``scrps``,
+``loo_lfo``, ``loo_compare``, ``loo_model_weights``) and the streaming forms
+``waic_streaming``, ``loo_score_streaming`` and ``loo_compare_streaming``,
 in float64 (the default, reference-exact) or float32 (``loo()`` and
 ``loo_streaming()`` through a hand-written CUDA prepass kernel).
 The device is ``rcParams["device.device"]`` (``"cuda"`` by default; set
@@ -20,7 +23,24 @@ The device is ``rcParams["device.device"]`` (``"cuda"`` by default; set
     print(pl.loo(idata, pointwise=True))
 """
 
+import types as _types
+
 from .base import ISMethod, compute_importance_weights
+from . import compare as _compare_module
+from .compare import CompareTable, ModelWeights, loo_compare, loo_model_weights
+
+
+class _CallableCompareModule(_types.ModuleType):
+    """Module type of ``pyloo_tpu_torch.compare``: calling the module calls
+    ``loo_compare``, so ``pl.compare({...})`` works and the submodule path
+    ``pyloo_tpu_torch.compare.loo_compare`` stays importable."""
+
+    def __call__(self, *args, **kwargs):
+        return self.loo_compare(*args, **kwargs)
+
+
+_compare_module.__class__ = _CallableCompareModule
+compare = _compare_module
 from .containers import DataArray, Dataset, InferenceData
 from .convert import inference_data_from_numpy
 from .data import load_example_data
@@ -39,11 +59,19 @@ from .generic_elpd import elpd
 from .loo import loo
 from .loo_group import loo_group
 from .loo_i import loo_i
+from .loo_lfo import loo_lfo
+from .loo_score import LooScoreResult, crps, loo_score, scrps
 from .loo_predictive_metric import MetricResult, loo_predictive_metric
 from .psis import CompactWeights, psislw, psislw_compact
 from .rcparams import rcParams
 from .sis import sislw
-from .streaming import clear_streaming_cache, loo_streaming
+from .streaming import (
+    clear_streaming_cache,
+    loo_compare_streaming,
+    loo_score_streaming,
+    loo_streaming,
+    waic_streaming,
+)
 from .tis import tislw
 from .utils import from_dict, get_log_likelihood, to_inference_data
 from .waic import waic
@@ -54,6 +82,19 @@ __all__ = [
     "loo",
     "loo_streaming",
     "clear_streaming_cache",
+    "waic_streaming",
+    "loo_score_streaming",
+    "loo_compare_streaming",
+    "loo_compare",
+    "loo_model_weights",
+    "compare",
+    "CompareTable",
+    "ModelWeights",
+    "loo_score",
+    "crps",
+    "scrps",
+    "LooScoreResult",
+    "loo_lfo",
     "loo_i",
     "loo_group",
     "waic",

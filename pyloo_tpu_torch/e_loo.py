@@ -247,9 +247,9 @@ def e_loo(
         k_flat = _khat_rows(x_matrix, lr_matrix, squared=type in ("variance", "sd"))
     del x_matrix, lr_matrix
 
-    min_ss_flat = np.array([_pareto_min_ss(k) for k in k_flat])
+    min_ss_flat = _min_ss_vectorized(k_flat)
     khat_thresh = _pareto_khat_threshold(n_samples)
-    conv_flat = np.array([_pareto_convergence_rate(k, n_samples) for k in k_flat])
+    conv_flat = _convergence_rate_vectorized(k_flat, n_samples)
 
     # reshape back to labeled observation dims -----------------------------
     _, k_da = rebuild(None, k_flat)
@@ -328,6 +328,41 @@ def _pareto_min_ss(k: float) -> float:
     if k < 1:
         return 10 ** (1 / (1 - max(0, k)))
     return float("inf")
+
+
+def _min_ss_vectorized(k):
+    """:func:`_pareto_min_ss` over a k vector (``pyloo_tpu/streaming.py:1256``)."""
+    k = np.asarray(k, dtype=np.float64)
+    out = np.full(k.shape, np.inf)
+    m = ~np.isnan(k) & (k < 1)
+    with np.errstate(over="ignore"):  # k just below 1: the minimum is inf
+        out[m] = 10.0 ** (1.0 / (1.0 - np.maximum(0.0, k[m])))
+    return out
+
+
+def _convergence_rate_vectorized(k, n_samples):
+    """:func:`_pareto_convergence_rate` over a k vector (``pyloo_tpu/streaming.py:1264``).
+
+    Piecewise: NaN -> 0, k < 0 -> 1, k > 1 -> 0, k == 1/2 -> 1 - 1/log(n),
+    0 < k < 1 -> the finite-n rate clamped at 0, else (k in {0, 1}) -> 1.
+    """
+    k = np.asarray(k, dtype=np.float64)
+    n = float(n_samples)
+    out = np.ones(k.shape)
+    out[np.isnan(k)] = 0.0
+    out[k > 1] = 0.0
+    half = k == 0.5
+    out[half] = 1.0 - 1.0 / np.log(n)
+    mid = (k > 0) & (k < 1) & ~half
+    km = k[mid]
+    num = (
+        2.0 * (km - 1.0) * n ** (2.0 * km + 1.0)
+        + (1.0 - 2.0 * km) * n ** (2.0 * km)
+        + n**2
+    )
+    den = (n - 1.0) * (n - n ** (2.0 * km))
+    out[mid] = np.maximum(0.0, num / den)
+    return out
 
 
 def _pareto_khat_threshold(n_samples: int) -> float:

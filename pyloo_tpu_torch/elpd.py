@@ -5,8 +5,8 @@ small ordered container of named rows in place of a ``pandas.Series``.  It
 keeps the behaviour ``loo()`` results are used with (indexing by name,
 attribute access to rows, ``in``, ``get``) and renders the same report
 strings byte for byte (reference ``pyloo/elpd.py:10-97`` templates).  The
-``loo`` (standard and mixture), ``waic``, ``logo`` and generic ``elpd`` kinds
-are rendered; the kfold, lfo, subsample, approximate-posterior and
+``loo`` (standard and mixture), ``waic``, ``logo``, ``lfo`` and generic
+``elpd`` kinds are rendered; the kfold, subsample, approximate-posterior and
 non-factorised kinds come with their estimators.
 """
 
@@ -34,6 +34,14 @@ Computed from {n_samples} by {n_points} log-likelihood matrix using the generic 
      Estimate       SE
 elpd   {elpd:<8.2f}    {se:<.2f}
 ic     {ic:<8.2f}    {ic_se:<.2f}"""
+
+# LFO-CV is a pyloo_tpu extension (no reference analogue)
+LFO_BASE_FMT = """
+Computed from {n_samples} posterior samples: {n_targets} {M}-step-ahead predictions with history >= {L} observations ({n_refits} exact refits).
+
+         Estimate       SE
+elpd_lfo   {elpd:<8.2f}    {se:<.2f}
+lfoic      {lfoic:<8.2f}    {lfoic_se:<.2f}"""
 
 LOGO_BASE_FMT = """
 Computed from {n_samples} posterior samples and {n_groups} groups log-likelihood matrix.
@@ -181,9 +189,11 @@ class ELPDData:
             return self._format_waic()
         if first == "elpd_logo":
             return self._format_logo()
+        if first == "elpd_lfo":
+            return self._format_lfo()
         if first != "elpd_loo" or "subsampling_SE" in self:
             raise NotImplementedError(
-                "pyloo_tpu_torch renders loo, waic, logo and generic elpd results;"
+                "pyloo_tpu_torch renders loo, waic, logo, lfo and generic elpd results;"
                 " the other result kinds come with their estimators"
             )
         return self._format_loo()
@@ -217,6 +227,23 @@ class ELPDData:
             p_logo_se=self.get("p_logo_se", float("nan")),
             logoic=self["logoic"],
             logoic_se=self["logoic_se"],
+        )
+        if self.warning:
+            base += _WARNING_NOTE
+        section, _ = _pareto_section(self)
+        return base + section
+
+    def _format_lfo(self):
+        base = LFO_BASE_FMT.format(
+            n_samples=self.n_samples,
+            n_targets=self.n_data_points,
+            M=self.get("M", 1),
+            L=self.get("L", "?"),
+            n_refits=self.get("n_refits", 0),
+            elpd=self["elpd_lfo"],
+            se=self["se"],
+            lfoic=self["lfoic"],
+            lfoic_se=self["lfoic_se"],
         )
         if self.warning:
             base += _WARNING_NOTE

@@ -55,6 +55,20 @@ def _is_chunk_source(obj) -> bool:
     return not callable(obj) and hasattr(obj, "read_rows")
 
 
+def _check_stream_args(log_lik_fn, mesh, name: str) -> None:
+    """Refuse what the port does not support: a mesh and disk chunk sources."""
+    if mesh is not None:
+        raise NotImplementedError(
+            f"mesh is not supported by pyloo_tpu_torch: {name} runs on one device"
+        )
+    if _is_chunk_source(log_lik_fn):
+        raise NotImplementedError(
+            f"disk chunk sources ({type(log_lik_fn).__name__}, e.g. pyloo_tpu.io.NpyLogLik)"
+            " are not supported by pyloo_tpu_torch yet; pass a callable that makes"
+            " each chunk on the device"
+        )
+
+
 def _as_dtype(dtype) -> torch.dtype:
     if dtype is None:
         dtype = rcParams["device.precision"]
@@ -151,16 +165,7 @@ def loo_streaming(
         raise ValueError("PSIS requires at least 2 draws per observation.")
     if n_obs < 1:
         raise ValueError("n_obs must be positive.")
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh is not supported by pyloo_tpu_torch: loo_streaming runs on one device"
-        )
-    if _is_chunk_source(log_lik_fn):
-        raise NotImplementedError(
-            f"disk chunk sources ({type(log_lik_fn).__name__}, e.g. pyloo_tpu.io.NpyLogLik)"
-            " are not supported by pyloo_tpu_torch yet; pass a callable that makes"
-            " each chunk on the device"
-        )
+    _check_stream_args(log_lik_fn, mesh, "loo_streaming")
 
     device = compute_device()
     dtype = _as_dtype(dtype)

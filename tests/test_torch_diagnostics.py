@@ -271,8 +271,10 @@ def test_loo_group_errors_and_warnings():
 # --------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("first", ["elpd_kfold", "elpd_lfo"])
-def test_other_report_kinds_say_they_are_not_rendered(first):
-    res = tpl.ELPDData([0.0, 1.0, 10, 5, False], [first, "se", "n_samples", "n_data_points", "warning"])
+@pytest.mark.parametrize("first,extra", [("elpd_kfold", []), ("elpd_loo", ["subsampling_SE"])],
+                         ids=["elpd_kfold", "subsample"])
+def test_other_report_kinds_say_they_are_not_rendered(first, extra):
+    rows = [first, "se", "n_samples", "n_data_points", "warning"] + extra
+    res = tpl.ELPDData([0.0, 1.0, 10, 5, False] + [0.1] * len(extra), rows)
     with pytest.raises(NotImplementedError, match="come with their estimators"):
         str(res)

@@ -284,3 +284,32 @@ def test_pareto_reliability_measures(k):
     assert te._pareto_min_ss(k) == je._pareto_min_ss(k)
     assert te._pareto_convergence_rate(k, 4000) == je._pareto_convergence_rate(k, 4000)
     assert te._pareto_khat_threshold(4000) == je._pareto_khat_threshold(4000)
+
+
+_K_EDGES = [np.nan, -0.2, 0.0, 0.3, 0.5, 0.7, 1.0, 1.4]
+
+
+@pytest.mark.parametrize("kind", ["edges", "random"])
+def test_vectorized_reliability_measures_equal_the_scalar_forms(kind):
+    import importlib
+
+    te = importlib.import_module("pyloo_tpu_torch.e_loo")
+    if kind == "edges":
+        k = np.array(_K_EDGES)
+    else:
+        k = np.random.default_rng(5).uniform(-0.5, 1.5, size=500)
+        k[::50] = np.nan
+    min_ss = te._min_ss_vectorized(k)
+    rate = te._convergence_rate_vectorized(k, 4000)
+    want_ss = np.array([te._pareto_min_ss(v) for v in k])
+    want_rate = np.array([te._pareto_convergence_rate(v, 4000) for v in k])
+    # inf exactly where the scalar form gives inf; the finite values equal on
+    # the edges and within an ulp or two elsewhere (numpy's array pow is not
+    # Python's scalar pow: measured max |d| 8.9e-16 on the random vector)
+    assert np.array_equal(np.isinf(min_ss), np.isinf(want_ss))
+    assert np.isinf(min_ss[np.isnan(k) | (k >= 1)]).all()
+    finite = np.isfinite(want_ss)
+    if kind == "edges":
+        assert np.array_equal(min_ss, want_ss) and np.array_equal(rate, want_rate)
+    assert_allclose(min_ss[finite], want_ss[finite], rtol=1e-14, atol=0)
+    assert_allclose(rate, want_rate, rtol=1e-14, atol=1e-15)

@@ -24,7 +24,9 @@ import pyloo_tpu_torch.streaming
 import pyloo_tpu_torch.ops.topk_profile
 import importlib
 for name in ("base", "psis", "sis", "tis", "waic", "loo_i", "e_loo", "loo_predictive_metric",
-             "diagnostics", "generic_elpd", "loo_group", "ops.expectations", "ops.selection"):
+             "diagnostics", "generic_elpd", "loo_group", "ops.expectations", "ops.selection",
+             "compare", "loo_score", "loo_lfo", "ops.stacking", "streaming.waic",
+             "streaming.score", "streaming.compare"):
     importlib.import_module("pyloo_tpu_torch." + name)
 
 pl.rcParams["device.device"] = "cpu"
@@ -68,8 +70,38 @@ weights_path["e_loo"] = lambda: pl.e_loo(eight, group="posterior", var_name="the
 weights_path["CompactWeights.weighted_mean"] = lambda: compact.weighted_mean(
     log_lik.values, -log_lik.values)
 compact = pl.psislw_compact(-log_lik)
+# scoring and comparison, and the streaming forms
+ll_rows = torch.from_numpy(np.ascontiguousarray(log_lik.values))  # (8, S)
+pred_rows = torch.from_numpy(rng.normal(size=(6, 200)))
+series = pl.from_dict(posterior={"b": rng.normal(size=(2, 100))},
+                      log_likelihood={"y": rng.normal(-1.0, 0.3, size=(2, 100, 30))})
+gen = lambda idx: ll_rows[idx]  # noqa: E731
+pgen = lambda idx: pred_rows[idx]  # noqa: E731
+from pyloo_tpu_torch.ops.stacking import stacking_weights_em
+weights_path.update({
+    "loo_compare": lambda: pl.loo_compare({"a": eight, "b": eight}),
+    "compare": lambda: pl.compare({"a": eight, "b": eight}, method="pseudo-bma"),
+    "loo_model_weights": lambda: pl.loo_model_weights({"a": eight, "b": eight}),
+    "loo_score": lambda: pl.loo_score(pred, permutations=2, seed=0),
+    "loo_lfo": lambda: pl.loo_lfo(series, L=10, M=2),
+    "waic_streaming": lambda: pl.waic_streaming(gen, 8, 2000),
+    "loo_score_streaming": lambda: pl.loo_score_streaming(pgen, pgen, pgen, y, 6, 200),
+    "loo_compare_streaming": lambda: pl.loo_compare_streaming({"a": gen, "b": gen}, 8, 2000),
+    "stacking_weights_em": lambda: stacking_weights_em(np.zeros((5, 2))),
+})
 for call in weights_path.values():
     call()
+assert pl.crps(np.ones((10, 3)), np.zeros((10, 3)), np.ones(3)).pointwise.shape == (3,)
+assert pl.scrps(np.ones((10, 3)), np.zeros((10, 3)), np.ones(3)).pointwise.shape == (3,)
+table = pl.loo_compare({"a": eight, "b": eight})
+assert table.index == ["a", "b"] and abs(table["weight"].sum() - 1.0) < 1e-9
+for frame in (table, pl.loo_model_weights({"a": eight, "b": eight})):
+    try:
+        frame.to_pandas()
+    except ImportError:
+        pass
+    else:
+        raise AssertionError("to_pandas() found pandas although it is blocked")
 means = pl.e_loo(eight, group="posterior", var_name="theta", log_weights=lw, log_ratios=-log_lik)
 assert means.value.shape == (8,) and float(k.values.max()) < 0.7
 assert round(pl.waic(eight)["elpd_waic"], 4) == -30.7378, pl.waic(eight)["elpd_waic"]
@@ -83,7 +115,8 @@ if not torch.cuda.is_available():
         try:
             call()
         except RuntimeError as err:
-            assert "no CUDA device" in str(err), (name, err)
+            # loo_compare names the model and chains the device's error as its cause
+            assert "no CUDA device" in str(err) + str(err.__cause__), (name, err)
         else:
             raise AssertionError(name + " fell back to the CPU")
 print("isolated ok")

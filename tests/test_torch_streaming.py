@@ -281,3 +281,114 @@ def test_checkpoint_errors_are_the_reference_messages(tmp_path):
 def test_clear_streaming_cache_is_a_no_op():
     assert tpl.clear_streaming_cache() is None
     assert tpl.clear_streaming_cache(torch_ll) is None
+
+
+# --------------------------------------------------------------------------
+# waic_streaming and loo_compare_streaming
+# --------------------------------------------------------------------------
+
+BETA2 = BETA.copy()
+BETA2[:, 2:] = 0.0  # a worse model: two of the five features
+_Bj2, _Bt2 = jnp.asarray(BETA2), torch.from_numpy(BETA2)
+
+
+def jax_ll2(idx):
+    eta = _Xj[idx] @ _Bj2.T
+    return _Yj[idx, None] * eta - jnp.logaddexp(eta, 0.0)
+
+
+def torch_ll2(idx):
+    eta = _Xt[idx] @ _Bt2.T
+    return _Yt[idx, None] * eta - torch.logaddexp(eta, torch.zeros(()))
+
+
+def _recorded(fn, *args, **kwargs):
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out = fn(*args, **kwargs)
+    return out, [str(w.message) for w in caught]
+
+
+@pytest.mark.parametrize("scale", ["log", "negative_log", "deviance"])
+def test_waic_streaming_float64_matches_and_prints_alike(scale):
+    jres, jmsg = _recorded(jpl.waic_streaming, jax_ll, N, S, chunk_size=CHUNK, pointwise=True,
+                           scale=scale, dtype=jnp.float64)
+    tres, tmsg = _recorded(tpl.waic_streaming, torch_ll, N, S, chunk_size=CHUNK, pointwise=True,
+                           scale=scale, dtype="float64")
+    assert tmsg == jmsg
+    assert list(tres.index) == list(jres.index)
+    for key in tres.index:
+        t, j = tres[key], jres[key]
+        if hasattr(t, "values"):
+            assert t.dims == j.dims and t.name == j.name
+            assert_allclose(t.values, j.values, **F64, err_msg=key)
+        elif isinstance(t, (float, np.floating)):
+            assert_allclose(t, j, **F64, err_msg=key)
+        else:
+            assert t == j, key
+    assert str(tres) == str(jres)
+
+
+def test_waic_streaming_against_waic_and_float32():
+    ll = torch_ll(torch.arange(N)).numpy()
+    stored = tpl.waic(tpl.from_dict(log_likelihood={"y": ll.T[None]}), pointwise=True)
+    streamed, msgs = _recorded(tpl.waic_streaming, torch_ll, N, S, chunk_size=CHUNK,
+                               pointwise=True)
+    for key in ("elpd_waic", "se", "p_waic"):
+        assert_allclose(streamed[key], stored[key], **F64)
+    assert_allclose(streamed.waic_i.values, stored.waic_i.values, **F64)
+    assert streamed["warning"] == stored["warning"]
+    f32, _ = _recorded(tpl.waic_streaming, torch_ll, N, S, chunk_size=CHUNK, pointwise=True,
+                       dtype="float32")
+    assert f32.waic_i.values.dtype == np.float64  # float32 rows, read back as float64
+    assert_allclose(f32.waic_i.values, stored.waic_i.values, **F32)
+    assert_allclose(f32["elpd_waic"], stored["elpd_waic"], rtol=1e-5)
+
+
+def test_waic_streaming_validation():
+    with pytest.raises(ValueError, match="at least 2 draws"):
+        tpl.waic_streaming(torch_ll, N, 1)
+    with pytest.raises(ValueError, match="n_obs must be positive"):
+        tpl.waic_streaming(torch_ll, 0, S)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        tpl.waic_streaming(torch_ll, N, S, mesh=object())
+
+
+@pytest.mark.parametrize("method", ["stacking", "bb-pseudo-bma", "pseudo-bma"])
+@pytest.mark.parametrize("ic", ["loo", "waic"])
+def test_loo_compare_streaming_matches(ic, method):
+    from .torch_parity import assert_same_table
+
+    kw = dict(ic=ic, method=method, seed=3, chunk_size=CHUNK)
+    jres, jmsg = _recorded(jpl.loo_compare_streaming, {"a": jax_ll, "b": jax_ll2}, N, S,
+                           dtype=jnp.float64, **kw)
+    tres, tmsg = _recorded(tpl.loo_compare_streaming, {"a": torch_ll, "b": torch_ll2}, N, S,
+                           dtype="float64", **kw)
+    assert tmsg == jmsg
+    assert_same_table(tres, jres, F64)
+
+
+def test_loo_compare_streaming_precomputed_entries_and_hook():
+    from .torch_parity import assert_same_table
+
+    pre = tpl.loo_streaming(torch_ll2, N, S, chunk_size=CHUNK, pointwise=True)
+    seen = []
+    got = tpl.loo_compare_streaming({"a": torch_ll, "b": pre}, N, S, chunk_size=CHUNK,
+                                    on_chunk=lambda name, c, n: seen.append((name, c, n)))
+    want = tpl.loo_compare({"a": tpl.loo_streaming(torch_ll, N, S, chunk_size=CHUNK,
+                                                   pointwise=True), "b": pre})
+    assert seen == [("a", c, 4) for c in range(1, 5)]
+    assert got.index == want.index
+    for column in want.columns:
+        assert got[column].tolist() == want[column].tolist(), column
+    jpre = jpl.loo_streaming(jax_ll2, N, S, chunk_size=CHUNK, pointwise=True)
+    jgot = jpl.loo_compare_streaming({"a": jax_ll, "b": jpre}, N, S, chunk_size=CHUNK)
+    assert_same_table(got, jgot, F64)
+    short = tpl.loo_streaming(torch_ll2, N - 3, S, chunk_size=CHUNK, pointwise=True)
+    with pytest.raises(ValueError, match="Precomputed ELPDData for model 'b' has 200"
+                                         " observations; expected 203."):
+        tpl.loo_compare_streaming({"a": torch_ll, "b": short}, N, S)
+    with pytest.raises(ValueError, match="ic must be 'loo' or 'waic'"):
+        tpl.loo_compare_streaming({"a": torch_ll, "b": pre}, N, S, ic="kfold")
+    with pytest.raises(ValueError, match="at least two models"):
+        tpl.loo_compare_streaming({"a": torch_ll}, N, S)

@@ -90,3 +90,20 @@ def assert_same_rows(tres, jres, tol=F64):
             assert t == j, key
         else:
             assert_allclose(values_of(t), values_of(j), err_msg=key, **tol)
+
+
+def assert_same_table(table, frame, tol):
+    """A port's CompareTable against pyloo_tpu's DataFrame, column by column,
+    and its ``to_pandas()`` against the frame."""
+    import pandas as pd
+
+    assert table.index == list(frame.index)
+    assert table.columns == list(frame.columns)
+    for column in frame.columns:
+        got, want = table[column], frame[column].to_numpy()
+        if want.dtype.kind == "f":
+            assert_allclose(got, want, err_msg=column, **tol)
+        else:
+            assert got.tolist() == want.tolist(), column
+    pd.testing.assert_frame_equal(table.to_pandas(), frame, check_exact=False,
+                                  rtol=tol["rtol"], atol=tol["atol"])
