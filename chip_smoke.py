@@ -56,7 +56,28 @@ Phases:
    65,536-row cut and, in float64 on 4,096 rows, to the CPU, with one chunk's
    time split into generators, ``psislw_batch`` and means; ``loo_lfo`` at
    10,000 time points x 4,000 float64 (M = 1 and 4), its first 1,024 targets
-   held to the CPU on the series cut after them.
+   held to the CPU on the series cut after them;
+8. a log-likelihood on disk: the first 250,000 rows of phase 2's matrix
+   written as float32 ``.npy`` to a temporary directory (removed at the
+   end); ``loo_from_file`` with the native prefetcher at the default
+   geometry, equal to phase 5b's ``loo_streaming`` over the same rows, then
+   ``loo_streaming`` over an ``NpyLogLik`` in 8 chunks with the native and the
+   memmap reader (``is_native``, ``reads_issued`` equal to the chunk count),
+   one chunk's host read, pinned and pageable copy and scoring timed, and
+   ``waic_from_file`` held to phase 6's ``waic`` on those rows; then
+   ``e_loo_streaming`` (mean, variance, quantile),
+   ``loo_predictive_metric_streaming`` (mae, acc) and ``loo_group_streaming``
+   (1,000 groups) at 1,000,000 x 4,000 with phase 5's model and phase 7's
+   predictive draws, each held to its stored-matrix form on the first
+   262,144 rows, made by the same generator calls;
+9. subsampled LOO and LOO for an approximate posterior:
+   ``loo_subsample_streaming`` at 1,000,000 x 4,000 (4,000 rows, diff_srs and
+   hh_pps; the sampled rows equal ``subsample_indices``' on the host, the
+   estimate within 4 subsampling SEs of phase 5's), ``loo_subsample`` and
+   ``update_subsample`` (4,000 -> 8,000) on 250,000 stored rows, and
+   ``loo_approximate_posterior_streaming`` at 1,000,000 x 4,000 (log_p, log_q
+   two normal densities of one coefficient's draws) held to
+   ``loo_approximate_posterior`` on 250,000 stored rows.
 
 Every main path runs with the kernels' launch counters set to 0 just before
 it and read just after; comparisons with the plain versions run outside
@@ -779,6 +800,8 @@ def phase_streaming(pl, ll_host, model, reff: float, res32, res64) -> dict:
             f" max |d loo_i| {np.nan_to_num(np.abs(e - e_ref)).max():.3g},"
             f" max |d k| {np.nan_to_num(np.abs(k - k_ref), posinf=0).max():.3g}",
         )
+        if dtype == "float32":  # phase 8 holds loo_from_file to it
+            phase5["5b"] = (e, k)
         del src, out
     return phase5
 
@@ -1375,6 +1398,377 @@ def phase_scoring(pl, ll_host, beta, model, reff: float, res32, phase5: dict, wa
     print(f"  card  {smi}", flush=True)
 
 
+def phase_disk(pl, ll_host, model, reff: float, phase5: dict, waic32, smi: str,
+               n_rows: int = 250_000, n_cut: int = 262_144, small: int = 31_256) -> None:
+    """Phase 8: a log-likelihood on disk (NpyLogLik, loo_from_file, waic_from_file),
+    and the streaming readers of the weights at full size."""
+    import shutil
+    import tempfile
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from pyloo_tpu_torch.base import ISMethod
+    from pyloo_tpu_torch.loo_predictive_metric import _accuracy, _mae
+    from pyloo_tpu_torch.ops.psis import tail_length
+    from pyloo_tpu_torch.streaming import _accumulate, _chunks
+    from pyloo_tpu_torch.streaming.expectations import ELOO_CHUNK_BUDGET
+
+    xw, yw, beta_c = model
+    chains, draws = beta_c.shape[0], beta_c.shape[1]
+    n_obs, s = xw.shape[0], chains * draws
+    gb = n_rows * s * 4 / 1e9
+    print(f"phase 8: a log-likelihood on disk ({n_rows} x {s} float32, {gb:.1f} GB) and the"
+          f" streaming readers at {n_obs} x {s} ({smi})", flush=True)
+    pl.rcParams["device.device"] = "cuda"
+    pl.rcParams["device.precision"] = "float32"
+    timings: dict = {}
+    cuda = torch.device("cuda")
+    tmp = tempfile.mkdtemp(prefix="pyloo_disk_")
+    try:
+        # (a) the first 250,000 rows of phase 2's matrix, written as .npy
+        path = os.path.join(tmp, "log_lik.npy")
+        t = time.perf_counter()
+        mm = np.lib.format.open_memmap(path, mode="w+", dtype=np.float32, shape=(n_rows, s))
+        for start in range(0, n_rows, 50_000):
+            n = min(50_000, n_rows - start)
+            mm[start : start + n] = obs_major(ll_host, n, start).cpu().numpy()
+        mm.flush()
+        del mm
+        print(f"  data  {gb:.1f} GB written with open_memmap in {time.perf_counter() - t:.1f} s",
+              flush=True)
+
+        # (b) the default geometry: equal to phase 5b's loo_streaming over the same rows
+        chunk, n_chunks = _chunks.resolve_chunk(None, n_rows, s, torch.float32)
+        e5b, k5b = phase5["5b"]
+        # twice: the second call finds its pinned staging in torch's host cache
+        for turn in ("", ", again"):
+            what = f"loo_from_file (native, {n_chunks} chunks of {chunk}{turn})"
+            res = timed_call(what, lambda: pl.loo_from_file(path, native=True, reff=reff,
+                                                            dtype="float32", pointwise=True),
+                             timings)
+            got = timings[what]["launches"]
+            e, k = res.loo_i.values, res.pareto_k.values
+            check(got["A"] == n_chunks and got["B"] == got["C"] == got["D"] == 0
+                  and np.array_equal(e, e5b, equal_nan=True)
+                  and np.array_equal(k, k5b, equal_nan=True),
+                  f"{what}: kernel A launched {got['A']} times ({n_chunks} expected); loo_i and"
+                  f" k equal phase 5b's loo_streaming over the stored rows"
+                  f" ({int((e != e5b).sum())} loo_i and {int((k != k5b).sum())} k differ);"
+                  f" {gb / timings[what]['wall_s']:.2f} GB/s from the file")
+
+        # (c) 8 chunks: the read / copy pipeline has chunks to overlap; native
+        # prefetcher against the memmap reader
+        small, n8 = _chunks.resolve_chunk(small, n_rows, s, torch.float32)
+        t = time.perf_counter()
+        pinned = [torch.empty((small, s), dtype=torch.float32, pin_memory=True)
+                  for _ in range(2)]
+        pin_s = time.perf_counter() - t
+        del pinned  # into torch's host cache: both readers below find their staging there
+        print(f"  time  pinning two staging buffers of {small} x {s} float32: {pin_s:.3f} s",
+              flush=True)
+        outs = {}
+        for native in (True, False):
+            what = f"loo_streaming over NpyLogLik(native={native}), {n8} chunks of {small}"
+            with pl.NpyLogLik(path, native=native) as src:
+                outs[native] = timed_call(what, lambda: pl.loo_streaming(
+                    src, n_rows, s, reff=reff, chunk_size=small, dtype="float32",
+                    pointwise=True), timings)
+                native_ok = src.is_native is native
+                reads = src.reads_issued
+            got = timings[what]["launches"]
+            check(native_ok and reads == (n8 if native else None) and got["A"] == n8,
+                  f"{what}: is_native {native_ok and native}, reads_issued {reads} ({n8 if native else None}"
+                  f" expected), kernel A {got['A']}; {gb / timings[what]['wall_s']:.2f} GB/s")
+        e8, k8 = outs[True].loo_i.values, outs[True].pareto_k.values
+        check(np.array_equal(e8, outs[False].loo_i.values, equal_nan=True)
+              and np.array_equal(k8, outs[False].pareto_k.values, equal_nan=True)
+              and np.allclose(e8, e, rtol=1e-6, atol=1e-6, equal_nan=True)
+              and np.allclose(k8, k, rtol=1e-6, atol=1e-6, equal_nan=True),
+              f"the two readers give equal results; {n8} chunks against {n_chunks} within rtol/atol"
+              f" 1e-6 (max |d loo_i| {np.nanmax(np.abs(e8 - e)):.3g}, {int((e8 != e).sum())} rows"
+              f" differ at all)")
+        del outs, res
+
+        # one chunk of 31,250 rows: the host read, the copy and the scoring
+        staging = torch.empty((small, s), dtype=torch.float32, pin_memory=True)
+        pageable = torch.empty((small, s), dtype=torch.float32)
+        read_s = {}
+        for native, buf in ((True, staging), (False, pageable)):
+            with pl.NpyLogLik(path, native=native) as src:
+                src._read_into(0, buf)  # the native ring's first read is synchronous
+                t = time.perf_counter()
+                src._read_into(small, buf)
+                read_s[native] = time.perf_counter() - t
+        chunk_gb = small * s * 4 / 1e9
+        copy_pinned = median_ms(lambda: staging.to(cuda, non_blocking=True), 5)
+        copy_pageable = median_ms(lambda: pageable.to(cuda), 5)
+        ll = staging.to(cuda)
+        valid = torch.ones(small, dtype=torch.bool, device=cuda)
+        carry = _accumulate.init_carry(ISMethod.PSIS, False, torch.float32, 0.7, cuda)
+        m_tail = tail_length(s, reff)
+        score = median_ms(lambda: _accumulate.accumulate_chunk(
+            ll, valid, carry, method=ISMethod.PSIS, tail_max=m_tail), 3)
+        del ll, staging, pageable
+        print(f"  time  one chunk of {small} rows ({chunk_gb:.2f} GB): host read native"
+              f" {1e3 * read_s[True]:.1f} ms ({chunk_gb / read_s[True]:.2f} GB/s), memmap"
+              f" {1e3 * read_s[False]:.1f} ms ({chunk_gb / read_s[False]:.2f} GB/s); copy pinned"
+              f" {copy_pinned:.1f} ms ({chunk_gb / copy_pinned * 1e3:.2f} GB/s), pageable"
+              f" {copy_pageable:.1f} ms ({chunk_gb / copy_pageable * 1e3:.2f} GB/s); scoring"
+              f" (kernel A, fit, sums) {score:.1f} ms", flush=True)
+
+        # (d) waic_from_file against phase 6's waic of the stored matrix on those rows
+        what = "waic_from_file (native)"
+        w = timed_call(what, lambda: pl.waic_from_file(path, native=True, dtype="float32",
+                                                        pointwise=True), timings)
+        ref = np.asarray(waic32.waic_i.values[:n_rows], np.float64)
+        want = float(ref.sum())
+        check(not any(timings[what]["launches"].values())
+              and np.allclose(w.waic_i.values, ref, rtol=1e-5, atol=1e-5)
+              and abs(w["elpd_waic"] / want - 1) <= 1e-6,
+              f"{what}: waic_i against phase 6's waic on the same rows (rtol/atol 1e-5: max |d|"
+              f" {np.abs(w.waic_i.values - ref).max():.3g}); elpd_waic {w['elpd_waic']:.4f} against"
+              f" their sum {want:.4f} (rel 1e-6)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (e) the streaming readers at full size: phase 5's model, phase 7's draws
+    beta_s = beta_c.reshape(s, -1)  # sample = chain * draws + draw, as loo() stacks them
+    zero = xw.new_zeros(())
+
+    def log_lik_fn(idx):
+        eta = xw[idx] @ beta_s.T  # (chunk, S), full float32 (no TF32)
+        return yw[idx, None] * eta - torch.logaddexp(eta, zero)
+
+    def x_fn(idx):  # posterior-predictive draws, the same whatever the chunk
+        return bernoulli_draws(idx, xw[idx] @ beta_s.T, 0)
+
+    y_host = yw.cpu().numpy()
+    probs = [0.05, 0.5, 0.95]
+    kinds = (("mean", None), ("variance", None), ("quantile", probs))
+    chunk, n_chunks = _chunks.resolve_chunk(None, n_obs, s, torch.float32,
+                                            budget=ELOO_CHUNK_BUDGET)
+    print(f"phase 8b: e_loo_streaming, loo_predictive_metric_streaming and loo_group_streaming"
+          f" at {n_obs} x {s} float32 ({n_chunks} chunks of {chunk})", flush=True)
+    big = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the Pareto-k warnings; the counts are printed
+        for kind, pr in kinds:
+            big[kind] = timed_call(f"e_loo_streaming {kind}", lambda: pl.e_loo_streaming(
+                log_lik_fn, x_fn, n_obs, s, type=kind, probs=pr, reff=reff, dtype="float32"),
+                timings)
+        metrics = {m: timed_call(f"loo_predictive_metric_streaming {m}",
+                                 lambda: pl.loo_predictive_metric_streaming(
+                                     log_lik_fn, x_fn, y_host, n_obs, s, metric=m, r_eff=reff,
+                                     dtype="float32"), timings)
+                   for m in ("mae", "acc")}
+        groups = np.arange(n_obs) % 1_000
+        logo = timed_call("loo_group_streaming (1,000 groups)", lambda: pl.loo_group_streaming(
+            log_lik_fn, groups, n_obs, s, reff=reff, dtype="float32", pointwise=True), timings)
+    q = big["quantile"].value.values
+    check(all(np.isfinite(r.value.values).all() for r in big.values())
+          and bool((np.diff(q, axis=1) >= 0).all())
+          and abs(metrics["mae"]["estimate"] - _mae(y_host, big["mean"].value.values.astype(np.float64))["estimate"]) <= 1e-12
+          and abs(metrics["acc"]["estimate"] - _accuracy(y_host, big["mean"].value.values.astype(np.float64))["estimate"]) <= 1e-12
+          and logo["n_groups"] == 1_000 and np.isfinite(logo.logo_i.values).all(),
+          f"finite values, quantiles ordered in the probabilities; mae"
+          f" {metrics['mae']['estimate']:.6f} and acc {metrics['acc']['estimate']:.6f} are the"
+          f" metrics of e_loo_streaming's mean; elpd_logo {logo['elpd_logo']:.2f} over 1,000"
+          f" groups; k > 0.7 on {int((big['mean'].pareto_k.values > 0.7).sum())} rows (mean)")
+
+    # each held to its stored-matrix form on the first rows, made by the same
+    # generator calls at the stream's chunking (so the rows are those scored)
+    parts_ll, parts_x = [], []
+    for c in range(-(-n_cut // chunk)):
+        idx, _ = _chunks.chunk_indices(c, chunk, n_obs, cuda)
+        parts_ll.append(log_lik_fn(idx).cpu())
+        parts_x.append(x_fn(idx).cpu())
+    ll_cut = torch.cat(parts_ll)[:n_cut].numpy()
+    x_cut = torch.cat(parts_x)[:n_cut].numpy()
+    del parts_ll, parts_x
+    ll_da = pl.DataArray(ll_cut, ("obs", "__sample__"))
+    lr_da = pl.DataArray(-ll_cut, ("obs", "__sample__"))
+    x_da = pl.DataArray(x_cut, ("obs", "__sample__"))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        lw, _ = pl.psislw(-ll_da, reff=reff)
+        stored = {kind: pl.e_loo(x_da, log_weights=lw, log_ratios=lr_da, type=kind, probs=pr)
+                  for kind, pr in kinds}
+        del lw
+        tol = {"mean": (1e-4, 1e-7), "variance": (1e-3, 1e-6), "quantile": (1e-4, 1e-7)}
+        for kind, _ in kinds:
+            a, b = big[kind].value.values[:n_cut], stored[kind].value.values
+            ka, kb = big[kind].pareto_k.values[:n_cut], stored[kind].pareto_k.values
+            rtol, atol = tol[kind]
+            check(np.allclose(a, b, rtol=rtol, atol=atol) and np.allclose(ka, kb, rtol=0, atol=2e-3),
+                  f"e_loo_streaming {kind}: its first {n_cut} rows against e_loo on them stored"
+                  f" (rtol {rtol:g}, atol {atol:g}: max |d| {np.abs(a - b).max():.3g},"
+                  f" {int((a != b).sum())} values differ at all; k atol 2e-3: max |d k|"
+                  f" {np.nanmax(np.abs(ka - kb)):.3g})")
+        y_cut = y_host[:n_cut].astype(np.float64)
+        mean_cut = stored["mean"].value.values.astype(np.float64)
+        ll_gen = torch.from_numpy(ll_cut).to(cuda)
+        x_gen = torch.from_numpy(x_cut).to(cuda)
+        for m, scorer in (("mae", _mae), ("acc", _accuracy)):
+            a = pl.loo_predictive_metric_streaming(lambda idx: ll_gen[idx], lambda idx: x_gen[idx],
+                                                   y_cut, n_cut, s, metric=m, r_eff=reff,
+                                                   chunk_size=chunk, dtype="float32")
+            b = scorer(y_cut, mean_cut)
+            check(abs(a["estimate"] - b["estimate"]) <= 1e-5 and abs(a["se"] - b["se"]) <= 1e-5,
+                  f"loo_predictive_metric_streaming {m} over the stored {n_cut} rows against"
+                  f" loo_predictive_metric's arithmetic on e_loo stored: {a['estimate']:.6f} and"
+                  f" {b['estimate']:.6f} (atol 1e-5)")
+        # the stream's group sums are float64 whatever the chunks' dtype: the
+        # stored form in float64 sums the same float32 values in float64
+        idata = pl.from_dict(posterior={"beta": np.zeros((1, s))},
+                             log_likelihood={"y": np.ascontiguousarray(ll_cut.T)[None]})
+        a = pl.loo_group_streaming(lambda idx: ll_gen[idx], groups[:n_cut], n_cut, s, reff=reff,
+                                   chunk_size=chunk, dtype="float32", pointwise=True)
+        pl.rcParams["device.precision"] = "float64"
+        b = pl.loo_group(idata, groups[:n_cut], reff=reff, pointwise=True)
+        pl.rcParams["device.precision"] = "float32"
+        check(np.allclose(a.logo_i.values, b.logo_i.values, rtol=1e-10, atol=1e-10)
+              and np.allclose(a.pareto_k, b.pareto_k, rtol=0, atol=1e-8),
+              f"loo_group_streaming over the stored {n_cut} rows against loo_group on them in"
+              f" float64 (both sum the float32 rows in float64): logo_i rtol/atol 1e-10 (max"
+              f" |d| {np.abs(a.logo_i.values - b.logo_i.values).max():.3g}), k atol 1e-8 (max"
+              f" |d k| {np.nanmax(np.abs(a.pareto_k - b.pareto_k)):.3g})")
+    del ll_gen, x_gen, idata, ll_cut, x_cut, big, stored
+    launched = {what: t["launches"] for what, t in timings.items() if any(t["launches"].values())}
+    print("  count launches of the kernels in phase 8, each public call a window of its own: "
+          + "; ".join(what + ": " + " ".join(f"{name} {n}" for name, n in got.items() if n)
+                      for what, got in launched.items())
+          + f"; the other {len(timings) - len(launched)} calls launch none of A to D", flush=True)
+    print(f"  card  {smi}", flush=True)
+
+
+def phase_subsample(pl, ll_host, beta, model, reff: float, res32, phase5: dict, smi: str,
+                    n_rows: int = 250_000, m: int = 4_000) -> None:
+    """Phase 9: subsampled LOO and LOO for an approximate posterior."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from pyloo_tpu_torch.estimators import subsample_indices
+    from pyloo_tpu_torch.streaming import _chunks
+
+    xw, yw, beta_c = model
+    chains, draws = beta_c.shape[0], beta_c.shape[1]
+    n_obs, s = xw.shape[0], chains * draws
+    print(f"phase 9: subsampled LOO and LOO for an approximate posterior at {n_obs} x {s}"
+          f" float32 ({smi})", flush=True)
+    pl.rcParams["device.device"] = "cuda"
+    pl.rcParams["device.precision"] = "float32"
+    timings: dict = {}
+    beta_s = beta_c.reshape(s, -1)
+    zero = xw.new_zeros(())
+
+    def log_lik_fn(idx):
+        eta = xw[idx] @ beta_s.T  # (chunk, S), full float32 (no TF32)
+        return yw[idx, None] * eta - torch.logaddexp(eta, zero)
+
+    seed = 17
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        # (a) loo_subsample_streaming: the sampled rows are those the host draws
+        for estimator in ("diff_srs", "hh_pps"):
+            what = f"loo_subsample_streaming ({estimator}, {m} of {n_obs})"
+            res = timed_call(what, lambda: pl.loo_subsample_streaming(
+                log_lik_fn, n_obs, s, m, estimator=estimator, reff=reff, seed=seed,
+                dtype="float32"), timings)
+            approx = res.estimates.stream["elpd_loo_approximation"]
+            want = subsample_indices(estimator, approx, m, rng=np.random.default_rng(seed))
+            got_idx = res.estimates.indices
+            z = (res["elpd_loo"] - phase5["elpd_loo"]) / res["subsampling_SE"]
+            check(np.array_equal(got_idx.idx, want.idx) and np.array_equal(got_idx.m_i, want.m_i)
+                  and abs(z) <= 4.0 and not any(timings[what]["launches"].values()),
+                  f"{what}: the {len(got_idx.idx)} sampled rows are subsample_indices' on the host;"
+                  f" elpd_loo {res['elpd_loo']:.2f} (subsampling SE {res['subsampling_SE']:.2f})"
+                  f" is {z:+.2f} SE from phase 5's {phase5['elpd_loo']:.2f} (4 allowed); launches"
+                  f" {timings[what]['launches']}")
+
+        # (b) loo_subsample and update_subsample on the stored first rows
+        ll_cut = np.ascontiguousarray(ll_host[:, :, :n_rows])
+        idata = pl.from_dict(posterior={"beta": beta}, log_likelihood={"y": ll_cut})
+        full = float(np.sum(res32.loo_i.values[:n_rows], dtype=np.float64))
+        loo_i32 = res32.loo_i.values[:n_rows]
+        sub = None
+        for size in (m, 2 * m):
+            what = f"loo_subsample ({size} of the stored {n_rows} rows)" if sub is None else \
+                f"update_subsample ({m} -> {size})"
+            np.random.seed(seed + size)
+            if sub is None:
+                sub = timed_call(what, lambda: pl.loo_subsample(
+                    idata, observations=size, seed=seed, pointwise=True), timings)
+            else:
+                sub = timed_call(what, lambda: pl.update_subsample(sub, observations=size),
+                                 timings)
+            idx = sub.estimates.indices.idx
+            e = sub.loo_i.values[idx]
+            z = (sub["elpd_loo"] - full) / sub["subsampling_SE"]
+            got = timings[what]["launches"]
+            check(len(idx) == size and got["B"] == 1 and got["A"] == got["C"] == got["D"] == 0
+                  and np.allclose(e, loo_i32[idx], rtol=1e-4, atol=1e-4) and abs(z) <= 4.0,
+                  f"{what}: kernel B {got['B']} (the exact float32 scorer on the sampled rows);"
+                  f" their loo_i against phase 2's loo() (rtol/atol 1e-4: max |d|"
+                  f" {np.abs(e - loo_i32[idx]).max():.3g}); elpd_loo {sub['elpd_loo']:.2f}"
+                  f" (subsampling SE {sub['subsampling_SE']:.2f}) is {z:+.2f} SE from the"
+                  f" full {full:.2f}")
+        print("  report\n" + "\n".join("    " + line for line in str(sub).splitlines()),
+              flush=True)
+        del sub
+
+        # (c) loo_approximate_posterior_streaming: log_p, log_q two normal
+        # densities of the draws of one coefficient
+        b0 = beta_s[:, 0].double().cpu().numpy()
+        rng = np.random.default_rng(7)
+        mu, sd = b0.mean(), b0.std()
+        mu_q, sd_q = mu + 0.2 * sd * rng.standard_normal(), sd * (1.0 + 0.3 * rng.random())
+
+        def normal_logpdf(x, loc, scale):
+            return -0.5 * ((x - loc) / scale) ** 2 - np.log(scale) - 0.5 * np.log(2 * np.pi)
+
+        log_p, log_q = normal_logpdf(b0, mu, sd), normal_logpdf(b0, mu_q, sd_q)
+        chunk, n_chunks = _chunks.resolve_chunk(None, n_obs, s, torch.float32)
+        what = f"loo_approximate_posterior_streaming ({n_obs} x {s})"
+        ap = timed_call(what, lambda: pl.loo_approximate_posterior_streaming(
+            log_lik_fn, log_p, log_q, n_obs, s, reff=reff, seed=seed, dtype="float32",
+            pointwise=True), timings)
+        got = timings[what]["launches"]
+        check(got["A"] == n_chunks and got["B"] == got["C"] == got["D"] == 0
+              and hasattr(ap, "approximate_posterior") and np.isfinite(ap.loo_i.values).all(),
+              f"{what}: kernel A launched {got['A']} times ({n_chunks} chunks); elpd_loo"
+              f" {ap['elpd_loo']:.2f}, p_loo {ap['p_loo']:.2f}")
+
+        # the stored form on the first rows: the same resample, the exact scorer.
+        # The made rows differ from the stored ones in the last bits, so k is held
+        # to phase 3's float32 envelope
+        what = f"loo_approximate_posterior (stored {n_rows} rows)"
+        stored = timed_call(what, lambda: pl.loo_approximate_posterior(
+            idata, log_p, log_q, reff=reff, seed=seed, pointwise=True), timings)
+        got = timings[what]["launches"]
+        a, b = ap.loo_i.values[:n_rows], stored.loo_i.values
+        ka, kb = ap.pareto_k.values[:n_rows], stored.pareto_k.values
+        close_k = np.abs(ka - kb) <= 2e-3
+        check(got["B"] >= 1 and got["A"] == 0 and np.allclose(a, b, rtol=1e-4, atol=1e-4)
+              and close_k.mean() >= 0.9999,
+              f"{what}: kernel B {got['B']}; loo_i of the stream's first {n_rows} rows against"
+              f" it (rtol/atol 1e-4: max |d| {np.abs(a - b).max():.3g}); k within 2e-3 on"
+              f" {int(close_k.sum())} rows (all but 1 in 10,000 required; max |d k|"
+              f" {np.nanmax(np.abs(ka - kb)):.3g})")
+        print("  report\n" + "\n".join("    " + line for line in str(stored).splitlines()),
+              flush=True)
+    del idata, ll_cut, ap, stored
+    launched = {what: t["launches"] for what, t in timings.items() if any(t["launches"].values())}
+    print("  count launches of the kernels in phase 9, each public call a window of its own: "
+          + "; ".join(what + ": " + " ".join(f"{name} {n}" for name, n in got.items() if n)
+                      for what, got in launched.items())
+          + f"; the other {len(timings) - len(launched)} calls launch none of A to D", flush=True)
+    print(f"  card  {smi}", flush=True)
+
+
 def phase_baseline(pl):
     print("phase 4: loo(centered_eight) against the published baseline", flush=True)
     want = {"elpd_loo": -30.7807, "se": 1.3435, "p_loo": 0.9472, "looic": 61.5613}
@@ -1479,6 +1873,9 @@ def main() -> int:
     del res64
     waic32 = phase_weights(pl, ll_host, beta, res32, smi)
     phase_scoring(pl, ll_host, beta, model, reff, res32, phase5, waic32, smi)
+    phase_disk(pl, ll_host, model, reff, phase5, waic32, smi)
+    del waic32
+    phase_subsample(pl, ll_host, beta, model, reff, res32, phase5, smi)
     del ll_host, model
 
     for key, kern in kernels.items():

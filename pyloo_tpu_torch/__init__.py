@@ -8,9 +8,11 @@ weights themselves (``psislw``, ``psislw_compact``, ``sislw``, ``tislw``,
 ``loo_predictive_metric``, ``loo_i``, ``loo_group``, ``waic``, ``elpd``,
 ``mcse_loo``, ``psis_ess_values``, ``loo_pit`` and the Pareto-k accessors),
 scoring and model comparison (``loo_score``, ``crps``, ``scrps``,
-``loo_lfo``, ``loo_compare``, ``loo_model_weights``) and the streaming forms
-``waic_streaming``, ``loo_score_streaming`` and ``loo_compare_streaming``,
-in float64 (the default, reference-exact) or float32 (``loo()`` and
+``loo_lfo``, ``loo_compare``, ``loo_model_weights``), subsampled LOO
+(``loo_subsample``, ``update_subsample``) and LOO for approximate
+posteriors (``loo_approximate_posterior``, ``importance_resample``), every
+``*_streaming`` form, and log-likelihood matrices on disk (``NpyLogLik``,
+``loo_from_file``, ``waic_from_file``), in float64 (the default, reference-exact) or float32 (``loo()`` and
 ``loo_streaming()`` through a hand-written CUDA prepass kernel).
 The device is ``rcParams["device.device"]`` (``"cuda"`` by default; set
 ``"cpu"`` to compute on the CPU).
@@ -59,17 +61,25 @@ from .generic_elpd import elpd
 from .loo import loo
 from .loo_group import loo_group
 from .loo_i import loo_i
+from .io import NpyLogLik, loo_from_file, waic_from_file
+from .loo_approximate_posterior import importance_resample, loo_approximate_posterior
 from .loo_lfo import loo_lfo
 from .loo_score import LooScoreResult, crps, loo_score, scrps
 from .loo_predictive_metric import MetricResult, loo_predictive_metric
+from .loo_subsample import loo_subsample, update_subsample
 from .psis import CompactWeights, psislw, psislw_compact
 from .rcparams import rcParams
 from .sis import sislw
 from .streaming import (
     clear_streaming_cache,
+    e_loo_streaming,
+    loo_approximate_posterior_streaming,
     loo_compare_streaming,
+    loo_group_streaming,
+    loo_predictive_metric_streaming,
     loo_score_streaming,
     loo_streaming,
+    loo_subsample_streaming,
     waic_streaming,
 )
 from .tis import tislw
@@ -85,6 +95,18 @@ __all__ = [
     "waic_streaming",
     "loo_score_streaming",
     "loo_compare_streaming",
+    "e_loo_streaming",
+    "loo_predictive_metric_streaming",
+    "loo_group_streaming",
+    "loo_subsample_streaming",
+    "loo_approximate_posterior_streaming",
+    "NpyLogLik",
+    "loo_from_file",
+    "waic_from_file",
+    "loo_subsample",
+    "update_subsample",
+    "loo_approximate_posterior",
+    "importance_resample",
     "loo_compare",
     "loo_model_weights",
     "compare",

@@ -155,15 +155,18 @@ def loo_compare(
     stratify=None,
     random_seed: int | None = None,
 ) -> CompareTable:
-    """Compare models by ELPD (LOO or WAIC; precomputed LFO and LOGO results).
+    """Compare models by ELPD (LOO, subsampled LOO or WAIC; precomputed LFO
+    and LOGO results).
 
     ``compare_dict`` maps model names to InferenceData-convertibles or to
     pointwise :class:`ELPDData` results.  Returns a :class:`CompareTable`
     ordered best to worst with columns rank / elpd / p_<ic> / elpd_diff /
-    weight / se / dse / warning / scale.  ``ic="kfold"`` on raw data and
-    ``observations=`` (subsampled LOO) are not ported yet and raise
-    :class:`NotImplementedError`; ``estimator``, ``K``, ``folds``,
-    ``stratify`` and ``random_seed`` belong to them.
+    weight / se / dse / warning / scale.  With ``observations`` (a subsample
+    size or indices) raw entries are scored by
+    :func:`pyloo_tpu_torch.loo_subsample` with ``estimator``.
+    ``ic="kfold"`` on raw data is not ported yet and raises
+    :class:`NotImplementedError`; ``K``, ``folds``, ``stratify`` and
+    ``random_seed`` belong to it.
 
     Examples
     --------
@@ -336,15 +339,17 @@ def _calculate_ics(
             " cross-validation comes with the refit slice of the port (ROADMAP.md,"
             " Queue 1 item 7); pass precomputed pointwise ELPDData instead"
         )
-    if raw and ic == "loo" and observations is not None:
-        raise NotImplementedError(
-            "observations= (subsampled LOO) is not supported by pyloo_tpu_torch yet: it"
-            " comes with the subsampling slice of the port (ROADMAP.md, Queue 1 item 4)"
-        )
     for name in raw:
         try:
             if ic == "waic":
                 out[name] = waic(out[name], pointwise=True, var_name=var_name, scale=scale)
+            elif observations is not None:
+                from .loo_subsample import loo_subsample
+
+                out[name] = loo_subsample(
+                    out[name], observations=observations, estimator=estimator,
+                    pointwise=True, var_name=var_name, scale=scale,
+                )
             else:
                 out[name] = loo(out[name], pointwise=True, var_name=var_name, scale=scale)
         except Exception as e:

@@ -5,9 +5,9 @@ small ordered container of named rows in place of a ``pandas.Series``.  It
 keeps the behaviour ``loo()`` results are used with (indexing by name,
 attribute access to rows, ``in``, ``get``) and renders the same report
 strings byte for byte (reference ``pyloo/elpd.py:10-97`` templates).  The
-``loo`` (standard and mixture), ``waic``, ``logo``, ``lfo`` and generic
-``elpd`` kinds are rendered; the kfold, subsample, approximate-posterior and
-non-factorised kinds come with their estimators.
+``loo`` (standard, mixture and approximate-posterior), subsampled ``loo``,
+``waic``, ``logo``, ``lfo`` and generic ``elpd`` kinds are rendered; the
+kfold and non-factorised kinds come with their estimators.
 """
 
 from __future__ import annotations
@@ -21,6 +21,26 @@ __all__ = ["ELPDData"]
 
 STD_BASE_FMT = """
 Computed from {n_samples} posterior samples and {n_points} observations log-likelihood matrix.
+
+         Estimate       SE
+elpd_loo   {elpd:<8.2f}    {se:<.2f}
+p_loo       {p_loo:<8.2f}    {p_loo_se:<.2f}
+looic      {looic:<8.2f}    {looic_se:<.2f}"""
+
+SUBSAMPLE_BASE_FMT = """
+Computed from {n_samples} by {subsample_size} subsampled log-likelihood
+values from {n_data_points} total observations.
+
+         Estimate       SE  subsampling SE
+elpd_loo   {elpd_loo:<8.2f}    {elpd_loo_se:<.2f}         {elpd_loo_subsamp_se:<.2f}
+p_loo       {p_loo:<8.2f}    {p_loo_se:<.2f}         {p_loo_subsamp_se:<.2f}
+looic      {looic:<8.2f}    {looic_se:<.2f}         {looic_subsamp_se:<.2f}
+{pareto_msg}"""
+
+APPROX_POSTERIOR_FMT = """
+Computed from {n_samples} posterior samples and {n_points} observations log-likelihood matrix.
+Posterior approximation correction used.
+------
 
          Estimate       SE
 elpd_loo   {elpd:<8.2f}    {se:<.2f}
@@ -191,11 +211,13 @@ class ELPDData:
             return self._format_logo()
         if first == "elpd_lfo":
             return self._format_lfo()
-        if first != "elpd_loo" or "subsampling_SE" in self:
+        if first != "elpd_loo":
             raise NotImplementedError(
-                "pyloo_tpu_torch renders loo, waic, logo, lfo and generic elpd results;"
-                " the other result kinds come with their estimators"
+                "pyloo_tpu_torch renders loo, subsampled loo, waic, logo, lfo and generic"
+                " elpd results; the other result kinds come with their estimators"
             )
+        if "subsampling_SE" in self:
+            return self._format_subsample()
         return self._format_loo()
 
     def __repr__(self):
@@ -250,6 +272,37 @@ class ELPDData:
         section, _ = _pareto_section(self)
         return base + section
 
+    def _format_subsample(self):
+        pareto_msg = (
+            "\n\nAll Pareto k estimates are good (k < 0.7).\nSee"
+            " help('pareto-k-diagnostic') for details."
+        )
+        section, all_good = _pareto_section(self)
+        if all_good is False:
+            pareto_msg = section  # the reference keeps the 0.7 message when all are good
+
+        elpd_loo = self["elpd_loo"]
+        elpd_loo_se = self["se"]
+        elpd_loo_subsamp_se = self["subsampling_SE"]
+        base = SUBSAMPLE_BASE_FMT.format(
+            elpd_loo=elpd_loo,
+            elpd_loo_se=elpd_loo_se,
+            elpd_loo_subsamp_se=elpd_loo_subsamp_se,
+            p_loo=self["p_loo"],
+            p_loo_se=self.get("p_loo_se", float("nan")),
+            p_loo_subsamp_se=self.get("p_loo_subsampling_se", float("nan")),
+            looic=-2 * elpd_loo,
+            looic_se=2 * elpd_loo_se,
+            looic_subsamp_se=2 * elpd_loo_subsamp_se,
+            n_samples=self.n_samples,
+            subsample_size=self["subsample_size"],
+            n_data_points=self.n_data_points,
+            pareto_msg=pareto_msg,
+        )
+        if self.warning:
+            base += _WARNING_NOTE
+        return base
+
     def _format_loo(self):
         pareto_msg, all_good = _pareto_section(self)
         # pyloo_tpu's loo() never sets a method, so its report takes the
@@ -269,7 +322,18 @@ class ELPDData:
                     " 0.7).\nSee help('pareto-k-diagnostic') for details."
                 )
 
-        if "p_loo" not in self:
+        if "approximate_posterior" in self.__dict__:
+            base = APPROX_POSTERIOR_FMT.format(
+                n_samples=self.n_samples,
+                n_points=self.n_data_points,
+                elpd=self["elpd_loo"],
+                se=self["se"],
+                p_loo=self["p_loo"],
+                p_loo_se=self["p_loo_se"],
+                looic=self["looic"],
+                looic_se=self["looic_se"],
+            )
+        elif "p_loo" not in self:
             base = MIXTURE_BASE_FMT.format(
                 n_samples=self.n_samples,
                 n_points=self.n_data_points,

@@ -12,10 +12,12 @@ crosses to the host until the end::
 
     res = pyloo_tpu_torch.loo_streaming(log_lik_fn, n_obs, n_draws, dtype="float32")
 
-Left out: ``mesh`` (one device) and disk chunk sources (``pyloo_tpu.io``'s
-``NpyLogLik``), which raise ``NotImplementedError``.  ``pyloo_tpu``'s
-generator program cache and its tiled chunk layout are JAX and TPU devices
-with no counterpart under eager torch.
+``log_lik_fn`` may also be a disk chunk source
+(:class:`pyloo_tpu_torch.io.NpyLogLik`), read chunk by chunk on the host and
+copied to the device.  Left out: ``mesh`` (one device), which raises
+``NotImplementedError``.  ``pyloo_tpu``'s generator program cache and its
+tiled chunk layout are JAX and TPU devices with no counterpart under eager
+torch.
 """
 
 from __future__ import annotations
@@ -50,22 +52,11 @@ def clear_streaming_cache(log_lik_fn=None) -> None:
     del log_lik_fn
 
 
-def _is_chunk_source(obj) -> bool:
-    """Disk-backed chunk sources (``pyloo_tpu.io.NpyLogLik`` and the like)."""
-    return not callable(obj) and hasattr(obj, "read_rows")
-
-
-def _check_stream_args(log_lik_fn, mesh, name: str) -> None:
-    """Refuse what the port does not support: a mesh and disk chunk sources."""
+def _check_stream_args(mesh, name: str) -> None:
+    """Refuse what the port does not support: a mesh."""
     if mesh is not None:
         raise NotImplementedError(
             f"mesh is not supported by pyloo_tpu_torch: {name} runs on one device"
-        )
-    if _is_chunk_source(log_lik_fn):
-        raise NotImplementedError(
-            f"disk chunk sources ({type(log_lik_fn).__name__}, e.g. pyloo_tpu.io.NpyLogLik)"
-            " are not supported by pyloo_tpu_torch yet; pass a callable that makes"
-            " each chunk on the device"
         )
 
 
@@ -108,12 +99,14 @@ def loo_streaming(
 
     Parameters
     ----------
-    log_lik_fn : callable
+    log_lik_fn : callable or NpyLogLik
         Maps a ``(chunk,)`` int64 tensor of observation indices on the
         device (a ragged last chunk repeats index ``n_obs - 1``) to the
         ``(chunk, n_draws)`` log-likelihood of those observations, a tensor
         on the same device (``rcParams["device.device"]``); a tensor
         elsewhere raises.  Called once per chunk; it is cast to ``dtype``.
+        Or a disk chunk source with at least ``n_obs`` rows of ``n_draws``
+        draws (:class:`pyloo_tpu_torch.io.NpyLogLik`).
     n_obs, n_draws : int
         Dataset extent.  ``n_draws`` must be at least 2.
     reff : float
@@ -165,7 +158,7 @@ def loo_streaming(
         raise ValueError("PSIS requires at least 2 draws per observation.")
     if n_obs < 1:
         raise ValueError("n_obs must be positive.")
-    _check_stream_args(log_lik_fn, mesh, "loo_streaming")
+    _check_stream_args(mesh, "loo_streaming")
 
     device = compute_device()
     dtype = _as_dtype(dtype)
@@ -218,9 +211,11 @@ def loo_streaming(
 
     # One host loop of queued device work chained by the carry; no device
     # value is read until the end (checkpoint saves aside).
+    make = _chunks.chunk_maker(log_lik_fn, chunk_size, n_obs, n_draws, dtype, device,
+                               "log_lik_fn")
     for c in range(start_chunk, n_chunks):
         idx, valid = _chunks.chunk_indices(c, chunk_size, n_obs, device)
-        ll = _chunks.generate(log_lik_fn, idx, (chunk_size, n_draws), dtype, "log_lik_fn")
+        ll = make(c, idx)
         if col_idx is not None:
             ll = _chunks.gather_cols(ll, col_idx)
         adj = None

@@ -45,7 +45,8 @@ def loo_score_streaming(
 
     ``x_fn`` / ``x2_fn`` make the two independent predictive sample sets
     (``(chunk,) int64 -> (chunk, n_draws)`` on the device, the contract of
-    ``log_lik_fn`` in :func:`pyloo_tpu_torch.loo_streaming`); ``y`` is the
+    ``log_lik_fn`` in :func:`pyloo_tpu_torch.loo_streaming`, a disk chunk
+    source included); ``y`` is the
     length-``n_obs`` observed vector.  The draw permutations pairing x with
     x2 are drawn once on the host from ``np.random.default_rng(seed)`` and
     shared by every chunk, as :func:`loo_score` draws them.  ``mesh`` is not
@@ -63,8 +64,7 @@ def loo_score_streaming(
     y = np.asarray(y).ravel()
     if len(y) != n_obs:
         raise ValueError(f"Length of y ({len(y)}) must match n_obs ({n_obs})")
-    for fn in (log_lik_fn, x_fn, x2_fn):
-        _check_stream_args(fn, mesh, "loo_score_streaming")
+    _check_stream_args(mesh, "loo_score_streaming")
 
     device = compute_device()
     dtype = _as_dtype(dtype)
@@ -76,16 +76,17 @@ def loo_score_streaming(
     y_pad = torch.zeros(n_chunks * chunk_size, dtype=dtype, device=device)
     y_pad[:n_obs] = torch.from_numpy(y.astype(np.float64)).to(device, dtype)
 
-    shape = (chunk_size, n_draws)
+    make_ll, make_x, make_x2 = (
+        _chunks.chunk_maker(fn, chunk_size, n_obs, n_draws, dtype, device, name)
+        for fn, name in ((log_lik_fn, "log_lik_fn"), (x_fn, "x_fn"), (x2_fn, "x2_fn"))
+    )
     buf_s = torch.zeros(n_chunks * chunk_size, dtype=dtype, device=device)
     buf_k = torch.zeros(n_chunks * chunk_size, dtype=dtype, device=device)
     for c in range(n_chunks):
         idx, _ = _chunks.chunk_indices(c, chunk_size, n_obs, device)
         rows = slice(c * chunk_size, (c + 1) * chunk_size)
         buf_s[rows], buf_k[rows] = _crps_chunk(
-            _chunks.generate(log_lik_fn, idx, shape, dtype, "log_lik_fn"),
-            _chunks.generate(x_fn, idx, shape, dtype, "x_fn"),
-            _chunks.generate(x2_fn, idx, shape, dtype, "x2_fn"),
+            make_ll(c, idx), make_x(c, idx), make_x2(c, idx),
             y_pad[rows], perms, tail_max=tail_max, scale=scale,
         )
         if on_chunk is not None:

@@ -41,7 +41,8 @@ def waic_streaming(
     log-likelihood is computed on the device by ``log_lik_fn``; the
     ``(n_obs, n_draws)`` matrix is never built.
 
-    Same generator contract as :func:`pyloo_tpu_torch.loo_streaming`; same
+    Same generator contract as :func:`pyloo_tpu_torch.loo_streaming` (a
+    disk chunk source included); same
     result rows as :func:`pyloo_tpu_torch.waic` (reference
     ``pyloo/waic.py:16-207``).  ``mesh`` is not supported (one device).
     """
@@ -50,7 +51,7 @@ def waic_streaming(
         raise ValueError("WAIC requires at least 2 draws per observation.")
     if n_obs < 1:
         raise ValueError("n_obs must be positive.")
-    _check_stream_args(log_lik_fn, mesh, "waic_streaming")
+    _check_stream_args(mesh, "waic_streaming")
     device = compute_device()
     dtype = _as_dtype(dtype)
     chunk_size, n_chunks = _chunks.resolve_chunk(chunk_size, n_obs, n_draws, dtype)
@@ -59,9 +60,11 @@ def waic_streaming(
     # of rows whose variance exceeds 0.4 (reference pyloo/waic.py:137-154)
     sums = torch.zeros(4, dtype=_ACC, device=device)
     buf_w = torch.zeros(n_chunks * chunk_size, dtype=dtype, device=device) if pointwise else None
+    make = _chunks.chunk_maker(log_lik_fn, chunk_size, n_obs, n_draws, dtype, device,
+                               "log_lik_fn")
     for c in range(n_chunks):
         idx, valid = _chunks.chunk_indices(c, chunk_size, n_obs, device)
-        ll = _chunks.generate(log_lik_fn, idx, (chunk_size, n_draws), dtype, "log_lik_fn")
+        ll = make(c, idx)
         lppd_i, vars_lpd = waic_scores(ll)
         del ll
         waic_u = lppd_i - vars_lpd  # the scale is applied on the host at the end

@@ -145,10 +145,18 @@ def test_not_pointwise_and_argument_errors():
 
 
 def test_kfold_and_subsampling_raise_with_their_roadmap_items():
+    # kfold waits for its roadmap item; subsampling (Queue 1 item 4) came
+    # with loo_subsample and scores each raw model on its subsample, as
+    # pyloo_tpu does (numpy's global stream seeded alike for both)
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         tpl.loo_compare(TORCH_MODELS, ic="kfold")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tpl.loo_compare(TORCH_MODELS, observations=10)
+    np.random.seed(5)
+    table, _ = _quiet(tpl.loo_compare, TORCH_MODELS, observations=10)
+    np.random.seed(5)
+    frame, _ = _quiet(jpl.loo_compare, JAX_MODELS, observations=10)
+    assert table.index == list(frame.index)
+    assert_allclose(table["elpd_loo"], frame["elpd_loo"].to_numpy(), **F64)
+    assert_allclose(table["se"], frame["se"].to_numpy(), **F64)
 
 
 def _series(seed, n=200):

@@ -26,7 +26,9 @@ import importlib
 for name in ("base", "psis", "sis", "tis", "waic", "loo_i", "e_loo", "loo_predictive_metric",
              "diagnostics", "generic_elpd", "loo_group", "ops.expectations", "ops.selection",
              "compare", "loo_score", "loo_lfo", "ops.stacking", "streaming.waic",
-             "streaming.score", "streaming.compare"):
+             "streaming.score", "streaming.compare", "_native", "io", "constants",
+             "estimators", "approximations", "loo_approximate_posterior", "loo_subsample",
+             "streaming.expectations", "streaming.group", "streaming.subsample"):
     importlib.import_module("pyloo_tpu_torch." + name)
 
 pl.rcParams["device.device"] = "cpu"
@@ -89,6 +91,31 @@ weights_path.update({
     "loo_compare_streaming": lambda: pl.loo_compare_streaming({"a": gen, "b": gen}, 8, 2000),
     "stacking_weights_em": lambda: stacking_weights_em(np.zeros((5, 2))),
 })
+# disk chunk sources, the streaming readers, subsampling, approximate posteriors
+import tempfile
+npy = tempfile.NamedTemporaryFile(suffix=".npy", delete=False).name
+np.save(npy, np.ascontiguousarray(log_lik.values))
+eight_ll = eight.log_likelihood.obs.values
+log_p, log_q = rng.normal(size=(2, 2000))
+weights_path.update({
+    "loo_from_file": lambda: pl.loo_from_file(npy, native=True, chunk_size=8),
+    "waic_from_file": lambda: pl.waic_from_file(npy, native=False),
+    "e_loo_streaming": lambda: pl.e_loo_streaming(gen, gen, 8, 2000, type="sd"),
+    "loo_predictive_metric_streaming": lambda: pl.loo_predictive_metric_streaming(
+        gen, gen, np.zeros(8), 8, 2000),
+    "loo_group_streaming": lambda: pl.loo_group_streaming(gen, np.arange(8) % 3, 8, 2000),
+    "loo_subsample": lambda: pl.loo_subsample(eight, observations=4, seed=0),
+    "update_subsample": lambda: pl.update_subsample(
+        pl.loo_subsample(eight, observations=4, seed=0), observations=6),
+    "loo_subsample_streaming": lambda: pl.loo_subsample_streaming(gen, 8, 2000, 4, seed=0),
+    "importance_resample": lambda: pl.importance_resample(log_p, log_q, seed=0),
+    "loo_approximate_posterior": lambda: pl.loo_approximate_posterior(
+        eight, log_p, log_q, seed=0),
+    "loo_approximate_posterior_streaming": lambda: pl.loo_approximate_posterior_streaming(
+        gen, log_p, log_q, 8, 2000, seed=0),
+    "loo_compare(observations=)": lambda: pl.loo_compare({"a": eight, "b": eight},
+                                                         observations=4),
+})
 for call in weights_path.values():
     call()
 assert pl.crps(np.ones((10, 3)), np.zeros((10, 3)), np.ones(3)).pointwise.shape == (3,)
@@ -105,6 +132,10 @@ for frame in (table, pl.loo_model_weights({"a": eight, "b": eight})):
 means = pl.e_loo(eight, group="posterior", var_name="theta", log_weights=lw, log_ratios=-log_lik)
 assert means.value.shape == (8,) and float(k.values.max()) < 0.7
 assert round(pl.waic(eight)["elpd_waic"], 4) == -30.7378, pl.waic(eight)["elpd_waic"]
+with pl.NpyLogLik(npy) as src:
+    assert src.is_native and src.n_obs == 8
+    assert abs(pl.loo_streaming(src, 8, 2000)["elpd_loo"] - pl.loo(eight, reff=1.0)["elpd_loo"]) < 1e-9
+assert "subsampled" in str(pl.loo_subsample(eight, observations=4, seed=0))
 loaded = [m for m, mod in sys.modules.items() if mod is not None]
 assert not any(m == "pyloo_tpu" or m.startswith(("pyloo_tpu.", "jax", "pandas")) for m in loaded)
 
@@ -119,6 +150,8 @@ if not torch.cuda.is_available():
             assert "no CUDA device" in str(err) + str(err.__cause__), (name, err)
         else:
             raise AssertionError(name + " fell back to the CPU")
+import os
+os.remove(npy)
 print("isolated ok")
 """
 

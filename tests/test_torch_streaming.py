@@ -196,13 +196,13 @@ def test_validation_errors():
     with pytest.raises(NotImplementedError, match="mesh"):
         tpl.loo_streaming(torch_ll, N, S, mesh=object())
 
-    class Source:
-        n_obs = N
+    class Source:  # a disk chunk source with fewer rows than asked for
+        n_obs, n_draws = N - 1, S
 
         def read_rows(self, start, count):
             raise AssertionError("never read")
 
-    with pytest.raises(NotImplementedError, match="disk chunk sources .*Source"):
+    with pytest.raises(ValueError, match="exceeds the 202 rows in the chunk source"):
         tpl.loo_streaming(Source(), N, S)
 
 
