@@ -77,7 +77,21 @@ Phases:
    ``update_subsample`` (4,000 -> 8,000) on 250,000 stored rows, and
    ``loo_approximate_posterior_streaming`` at 1,000,000 x 4,000 (log_p, log_q
    two normal densities of one coefficient's draws) held to
-   ``loo_approximate_posterior`` on 250,000 stored rows.
+   ``loo_approximate_posterior`` on 250,000 stored rows;
+10. model wrappers, moment matching and exact refits, in float64, the HMC
+   step loop under ``torch.cuda.set_sync_debug_mode("error")`` (a read of a
+   device value on the host raises): (a) ``fit(roaches_model())``, 4 chains
+   x 1,000 + 1,000 draws, 32 leapfrog steps (wall, ms a step, acceptance,
+   split-R-hat < 1.05), ``loo`` and ``loo(moment_match=True, split=True)``
+   on the device-batched path and the host loop, held to each other within
+   1e-10 in ``loo_i`` and ``pareto_k``; (b) the greedy loops of the two
+   paths on an overdispersed Poisson regression (600 observations, P = 10,
+   S = 4,000 draws of its Laplace approximation, >= 64 observations k >
+   0.7): the batched path over all of them, with its passes and peak device
+   memory against its budget, the host loop over 8, each timed per
+   observation; (c) ``loo_kfold`` on ``wells_model()`` (3,020 observations,
+   K = 10) as one batched HMC run of 40 chains, and ``reloo`` on the roaches
+   fit batched over its k > 0.7 observations, each against the PSIS elpd.
 
 Every main path runs with the kernels' launch counters set to 0 just before
 it and read just after; comparisons with the plain versions run outside
@@ -1769,6 +1783,227 @@ def phase_subsample(pl, ll_host, beta, model, reff: float, res32, phase5: dict, 
     print(f"  card  {smi}", flush=True)
 
 
+def poisson_overdispersed(pl, n: int = 600, p: int = 10, seed: int = 3):
+    """Phase 10b's model: a Poisson regression with an intercept and 9 normal
+    covariates on overdispersed counts (a gamma-Poisson mixture of shape
+    0.25 around exp(X beta), made from ``seed``), under N(0, 2.5^2) priors.
+    The counts the Poisson cannot explain give ~80 observations k > 0.7.
+    Returns the model and its posterior mode (Newton's method on the host)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    X = np.column_stack([np.ones(n), rng.normal(size=(n, p - 1))])
+    beta = np.concatenate([[3.0], rng.normal(0.0, 0.5, size=p - 1)])
+    y = rng.poisson(np.exp(X @ beta) * rng.gamma(0.25, 1 / 0.25, size=n)).astype(np.float64)
+
+    def log_lik(params, data):
+        eta = data["X"] @ params["beta"]
+        return data["y"] * eta - torch.exp(eta) - torch.lgamma(data["y"] + 1.0)
+
+    def logp(params, data):
+        return torch.sum(-0.5 * (params["beta"] / 2.5) ** 2) + torch.sum(log_lik(params, data))
+
+    b = np.zeros(p)
+    b[0] = np.log(y.mean())
+    for _ in range(50):
+        mu = np.exp(X @ b)
+        hess = X.T @ (mu[:, None] * X) + np.eye(p) / 2.5**2
+        b = b + np.linalg.solve(hess, X.T @ (y - mu) - b / 2.5**2)
+    model = pl.Model("poisson_overdispersed", {"X": X, "y": y}, {"beta": (p,)}, logp, log_lik,
+                     obs_keys=("X", "y"))
+    return model, b
+
+
+def laplace_draws(pl, model, start, seed: int, chains: int = 4, draws: int = 1000):
+    """(chains, draws, D) independent draws from the Laplace approximation of
+    ``model``'s posterior: the mode by 20 Newton steps from ``start`` and the
+    covariance the inverse negative Hessian, both by ``torch.func`` on the
+    card.  For the phases that need posterior draws but not a sampler."""
+    import numpy as np
+    import torch
+
+    device = pl.rcParams["device.device"]
+    data = model.tensor_data(device)
+
+    def logp(q):
+        return model.logp(model.unravel(q), data)
+
+    q = torch.tensor(np.asarray(start, dtype=np.float64), device=device)
+    for _ in range(20):
+        q = q - torch.linalg.solve(torch.func.hessian(logp)(q), torch.func.grad(logp)(q))
+    chol = torch.linalg.cholesky(torch.linalg.inv(-torch.func.hessian(logp)(q)))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    z = torch.randn((chains * draws, q.numel()), generator=gen, dtype=q.dtype, device=device)
+    return (q + z @ chol.T).reshape(chains, draws, -1).cpu().numpy()
+
+
+def phase_refits(pl, smi: str) -> None:
+    """Phase 10: model wrappers, moment matching and exact refits, float64."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from pyloo_tpu_torch.models import batched_refit, hmc
+    from pyloo_tpu_torch.models.wrapper import _EVAL_BUDGET_BYTES, idata_from_flat_draws
+    from pyloo_tpu_torch.ops.ess import rhat
+
+    kfold_mod, reloo_mod = sys.modules["pyloo_tpu_torch.loo_kfold"], sys.modules["pyloo_tpu_torch.reloo"]
+    print(f"phase 10: model wrappers, moment matching and exact refits, float64 ({smi})",
+          flush=True)
+    pl.rcParams["device.device"] = "cuda"
+    pl.rcParams["device.precision"] = "float64"
+    timings: dict = {}
+
+    # the HMC step loop runs under sync debug mode "error": any read of a
+    # device value on the host (.item(), a branch on a tensor, a blocking
+    # copy) raises; the batched fold refits are recorded
+    real_run, real_batched = hmc._run_chains, batched_refit.kfold_refit_batched
+    steps, batched_calls = [], []
+
+    def strict_run(*args, **kwargs):
+        steps.append(args[3] + args[4])
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real_run(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    def recorded_batched(model, train_idx, val_idx, **kwargs):
+        batched_calls.append((train_idx.shape[0], train_idx.shape[1], val_idx.shape[1],
+                              kwargs.get("chains", 4)))
+        return real_batched(model, train_idx, val_idx, **kwargs)
+
+    hmc._run_chains = batched_refit._run_chains = strict_run
+    kfold_mod.kfold_refit_batched = reloo_mod.kfold_refit_batched = recorded_batched
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            # (a) the roaches fit and moment matching
+            roaches = pl.models.roaches_model()
+            what = "fit(roaches_model(), 4 chains x 1,000 + 1,000 draws, 32 leapfrog steps)"
+            idata = timed_call(what, lambda: pl.models.fit(roaches, draws=1000, tune=1000,
+                                                           chains=4, seed=1), timings)
+            t = timings[what]
+            flat = idata.sample_stats["_flat_draws"].values
+            t["steps"], t["ms_per_step"] = steps[-1], 1e3 * t["wall_s"] / steps[-1]
+            t["accept"] = float(idata.sample_stats["accept_rate"].values.mean())
+            t["rhat"] = max(rhat(flat[:, :, j]) for j in range(flat.shape[2]))
+            check(t["rhat"] < 1.05 and np.isfinite(flat).all(),
+                  f"{what}: {t['steps']} steps of 4 chains with no host read (sync debug mode"
+                  f" 'error'), {t['ms_per_step']:.3f} ms a step, acceptance {t['accept']:.3f},"
+                  f" max split-R-hat {t['rhat']:.4f} (< 1.05)")
+            res = timed_call("loo(roaches fit)", lambda: pl.loo(idata, pointwise=True), timings)
+            n_bad = int(np.sum(res.pareto_k.values > 0.7))
+            print(f"  roaches: elpd_loo {res['elpd_loo']:.4f}, p_loo {res['p_loo']:.3f},"
+                  f" {n_bad} of 262 observations k > 0.7", flush=True)
+            wrapper = pl.JAXModelWrapper(roaches, idata)
+            mm = {}
+            for batched in (True, False):
+                what = f"loo(moment_match=True, split=True, device_batched={batched})"
+                mm[batched] = timed_call(what, lambda: pl.loo(
+                    idata, pointwise=True, moment_match=True, wrapper=wrapper, split=True,
+                    device_batched=batched), timings)
+            d_loo = float(np.abs(mm[False].loo_i.values - mm[True].loo_i.values).max())
+            d_k = float(np.abs(mm[False].pareto_k.values - mm[True].pareto_k.values).max())
+            left = [int(np.sum(r.pareto_k.values > 0.7)) for r in (mm[True], mm[False])]
+            check(d_loo <= 1e-10 and d_k <= 1e-10 and max(left) < n_bad,
+                  f"roaches moment matching: the device-batched path against the host loop,"
+                  f" max |d loo_i| {d_loo:.3g}, max |d k| {d_k:.3g} (1e-10); k > 0.7 {n_bad} ->"
+                  f" {left[0]} (host loop {left[1]}); elpd_loo {mm[True]['elpd_loo']:.4f} (host"
+                  f" loop {mm[False]['elpd_loo']:.4f}); {mm[True].moment_match_passes} batched"
+                  f" passes")
+
+            # (b) many bad observations at once: the greedy loops alone
+            # (split=False: the split step is a host loop over the observations
+            # on both paths), on draws from the model's Laplace approximation
+            # (the HMC sampler mixes slowly at this posterior's scale)
+            pm, mode = poisson_overdispersed(pl)
+            idata_b = idata_from_flat_draws(pm, laplace_draws(pl, pm, mode, seed=2))
+            res_b = timed_call("loo(poisson_overdispersed, 4 x 1,000 Laplace draws)",
+                               lambda: pl.loo(idata_b, pointwise=True), timings)
+            k_b = res_b.pareto_k.values
+            bad_b = np.nonzero(k_b > 0.7)[0]
+            s_b = 4 * 1000
+            full_gb = len(bad_b) * s_b * pm.n_obs * 8 / 1e9
+            check(len(bad_b) >= 64, f"poisson_overdispersed ({pm.n_obs} observations, P ="
+                  f" {pm.flat_dim}): {len(bad_b)} observations k > 0.7 (64 required)")
+            wrapper_b = pl.JAXModelWrapper(pm, idata_b)
+            what_b = f"loo_moment_match(poisson, its {len(bad_b)} observations, device_batched=True)"
+            mm_bb = timed_call(what_b, lambda: pl.loo_moment_match(
+                wrapper_b, res_b, split=False, device_batched=True), timings)
+            # the host loop on 8 of them: the others' k is set below the
+            # threshold in its input, so it leaves them alone
+            sub = bad_b[:8]
+            res_sub = res_b.copy()
+            k_sub = res_sub.pareto_k.values
+            k_sub[np.setdiff1d(bad_b, sub)] = 0.0
+            what_h = f"loo_moment_match(poisson, {len(sub)} of them, device_batched=False)"
+            mm_bh = timed_call(what_h, lambda: pl.loo_moment_match(
+                wrapper_b, res_sub, split=False, device_batched=False), timings)
+            peak = timings[what_b]["peak_gb"]
+            budget = 2 * _EVAL_BUDGET_BYTES / 1e9
+            check(peak <= budget,
+                  f"the batched path's peak device memory {peak:.3f} GB within {budget:.2f} GB"
+                  f" (twice the model evaluation budget); the full-vector log-likelihood of"
+                  f" {len(bad_b)} lanes x {s_b} draws x {pm.n_obs} observations alone is"
+                  f" {full_gb:.2f} GB")
+            # the lanes of a group evaluate log p in batches of other shapes than
+            # the host loop's, so the paths are not bitwise alike here; 1e-3 is
+            # far inside loo_i's Monte Carlo error
+            d_loo = float(np.abs(mm_bb.loo_i.values[sub] - mm_bh.loo_i.values[sub]).max())
+            d_k = float(np.abs(mm_bb.pareto_k.values[sub] - mm_bh.pareto_k.values[sub]).max())
+            per_b = timings[what_b]["wall_s"] / len(bad_b)
+            per_h = timings[what_h]["wall_s"] / len(sub)
+            check(d_loo <= 1e-3 and d_k <= 1e-3 and np.sum(mm_bb.pareto_k.values > 0.7) < len(bad_b),
+                  f"poisson moment matching: {mm_bb.moment_match_passes} batched passes,"
+                  f" {per_b:.3f} s an observation batched against {per_h:.3f} s on the host"
+                  f" loop ({per_h / per_b:.1f}x); on the host loop's {len(sub)} observations max"
+                  f" |d loo_i| {d_loo:.3g}, max |d k| {d_k:.3g} (1e-3); k > 0.7"
+                  f" {len(bad_b)} -> {int(np.sum(mm_bb.pareto_k.values > 0.7))}")
+
+            # (c) exact refits, each a batched HMC run from the default start
+            wells = pl.models.wells_model()
+            refit_kw = dict(draws=300, tune=300, chains=4, num_leapfrog=8)
+            wfit = idata_from_flat_draws(wells, laplace_draws(pl, wells, np.zeros(3), seed=3))
+            wloo = timed_call("loo(wells, 4 x 1,000 Laplace draws)",
+                              lambda: pl.loo(wfit, pointwise=True), timings)
+            ww = pl.JAXModelWrapper(wells, wfit, sample_kwargs=dict(refit_kw, seed=4))
+            what = "loo_kfold(wells, K=10)"
+            kf = timed_call(what, lambda: pl.loo_kfold(ww, K=10, random_seed=0, pointwise=True),
+                            timings)
+            d = kf["elpd_kfold"] - wloo["elpd_loo"]
+            check(batched_calls[-1:] == [(10, 2718, 302, 4)] and np.isfinite(kf.kfold_i.values).all()
+                  and abs(d) < 4 * wloo["se"] / 10,
+                  f"{what}: one batched run of 10 folds x 4 chains (40 chains) of 2,718 training"
+                  f" rows; {timings[what]['wall_s'] / steps[-1] * 1e3:.3f} ms a step;"
+                  f" held-out elpd_kfold {kf['elpd_kfold']:.3f} against PSIS elpd_loo"
+                  f" {wloo['elpd_loo']:.3f} (d {d:+.3f}, within 0.4 of its se {wloo['se']:.3f})")
+            rw = pl.JAXModelWrapper(roaches, idata, sample_kwargs=dict(refit_kw, seed=5))
+            what = f"reloo(roaches, its {n_bad} observations k > 0.7)"
+            rr = timed_call(what, lambda: pl.reloo(rw, loo_orig=res, verbose=False), timings)
+            bad = res.pareto_k.values > 0.7
+            check(batched_calls[-1:] == [(n_bad, 261, 1, 4)] and (rr.pareto_k.values[bad] == 0).all()
+                  and np.isfinite(rr.loo_i.values).all(),
+                  f"{what}: one batched run of {n_bad} leave-one-out refits x 4 chains;"
+                  f" {timings[what]['wall_s'] / steps[-1] * 1e3:.3f} ms a step; elpd_loo"
+                  f" {rr['elpd_loo']:.3f} (PSIS {res['elpd_loo']:.3f}, moment matched"
+                  f" {mm[True]['elpd_loo']:.3f}); the refitted observations' sum"
+                  f" {rr.loo_i.values[bad].sum():.3f} (PSIS {res.loo_i.values[bad].sum():.3f},"
+                  f" moment matched {mm[True].loo_i.values[bad].sum():.3f})")
+    finally:
+        hmc._run_chains = batched_refit._run_chains = real_run
+        kfold_mod.kfold_refit_batched = reloo_mod.kfold_refit_batched = real_batched
+    launched = {what: t["launches"] for what, t in timings.items() if any(t["launches"].values())}
+    check(not launched, "phase 10 runs in float64 and launches none of kernels A to D in any of"
+          f" its {len(timings)} windows (expected: no float32 scorer runs here)"
+          + (f"; launched: {launched}" if launched else ""))
+    print(f"  card  {smi}", flush=True)
+
+
 def phase_baseline(pl):
     print("phase 4: loo(centered_eight) against the published baseline", flush=True)
     want = {"elpd_loo": -30.7807, "se": 1.3435, "p_loo": 0.9472, "looic": 61.5613}
@@ -1877,6 +2112,7 @@ def main() -> int:
     del waic32
     phase_subsample(pl, ll_host, beta, model, reff, res32, phase5, smi)
     del ll_host, model
+    phase_refits(pl, smi)
 
     for key, kern in kernels.items():
         kern["launches"] = PATH_LAUNCHES[KERNEL_COUNTERS[key]]

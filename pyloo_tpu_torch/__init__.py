@@ -13,7 +13,11 @@ scoring and model comparison (``loo_score``, ``crps``, ``scrps``,
 posteriors (``loo_approximate_posterior``, ``importance_resample``), every
 ``*_streaming`` form, and log-likelihood matrices on disk (``NpyLogLik``,
 ``loo_from_file``, ``waic_from_file``), in float64 (the default, reference-exact) or float32 (``loo()`` and
-``loo_streaming()`` through a hand-written CUDA prepass kernel).
+``loo_streaming()`` through a hand-written CUDA prepass kernel); and the
+workflows that refit or re-weight a model (``Model``, ``JAXModelWrapper``,
+``loo(moment_match=True)`` / ``loo_moment_match``, ``loo_kfold``,
+``reloo``), whose models are torch functions sampled by HMC on the device
+(:mod:`pyloo_tpu_torch.models`).
 The device is ``rcParams["device.device"]`` (``"cuda"`` by default; set
 ``"cpu"`` to compute on the CPU).
 
@@ -58,18 +62,39 @@ from .diagnostics import (
 from .e_loo import ExpectationResult, compute_pareto_k, e_loo, k_hat
 from .elpd import ELPDData
 from .generic_elpd import elpd
+from .helpers import (
+    ParameterConverter,
+    ShiftAndCovResult,
+    ShiftAndScaleResult,
+    ShiftResult,
+    UpdateQuantitiesResult,
+    compute_updated_r_eff,
+    extract_log_likelihood_for_observation,
+    log_lik_i_upars,
+    log_prob_upars,
+)
 from .loo import loo
 from .loo_group import loo_group
 from .loo_i import loo_i
+from .loo_kfold import (
+    _kfold_split_grouped,
+    _kfold_split_random,
+    _kfold_split_stratified,
+    loo_kfold,
+)
+from .loo_moment_match import loo_moment_match
 from .io import NpyLogLik, loo_from_file, waic_from_file
 from .loo_approximate_posterior import importance_resample, loo_approximate_posterior
 from .loo_lfo import loo_lfo
 from .loo_score import LooScoreResult, crps, loo_score, scrps
 from .loo_predictive_metric import MetricResult, loo_predictive_metric
 from .loo_subsample import loo_subsample, update_subsample
+from .models import JAXModelWrapper, Model
 from .psis import CompactWeights, psislw, psislw_compact
 from .rcparams import rcParams
+from .reloo import reloo
 from .sis import sislw
+from .split_moment_match import loo_moment_match_split
 from .streaming import (
     clear_streaming_cache,
     e_loo_streaming,
@@ -149,4 +174,22 @@ __all__ = [
     "Dataset",
     "DataArray",
     "ELPDData",
+    "loo_kfold",
+    "_kfold_split_random",
+    "_kfold_split_stratified",
+    "_kfold_split_grouped",
+    "reloo",
+    "JAXModelWrapper",
+    "Model",
+    "loo_moment_match",
+    "loo_moment_match_split",
+    "ParameterConverter",
+    "ShiftAndCovResult",
+    "ShiftAndScaleResult",
+    "ShiftResult",
+    "UpdateQuantitiesResult",
+    "log_lik_i_upars",
+    "log_prob_upars",
+    "compute_updated_r_eff",
+    "extract_log_likelihood_for_observation",
 ]

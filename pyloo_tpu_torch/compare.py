@@ -163,10 +163,10 @@ def loo_compare(
     ordered best to worst with columns rank / elpd / p_<ic> / elpd_diff /
     weight / se / dse / warning / scale.  With ``observations`` (a subsample
     size or indices) raw entries are scored by
-    :func:`pyloo_tpu_torch.loo_subsample` with ``estimator``.
-    ``ic="kfold"`` on raw data is not ported yet and raises
-    :class:`NotImplementedError`; ``K``, ``folds``, ``stratify`` and
-    ``random_seed`` belong to it.
+    :func:`pyloo_tpu_torch.loo_subsample` with ``estimator``.  With
+    ``ic="kfold"`` raw entries are model wrappers scored by
+    :func:`pyloo_tpu_torch.loo_kfold` with ``K`` (default 10), ``folds``,
+    ``stratify`` and ``random_seed``.
 
     Examples
     --------
@@ -333,16 +333,18 @@ def _calculate_ics(
             "precompute every entry (e.g. loo_lfo/loo_group with "
             "pointwise=True) and pass the ELPDData results"
         )
-    if raw and ic == "kfold":
-        raise NotImplementedError(
-            "ic='kfold' on raw data is not supported by pyloo_tpu_torch yet: K-fold"
-            " cross-validation comes with the refit slice of the port (ROADMAP.md,"
-            " Queue 1 item 7); pass precomputed pointwise ELPDData instead"
-        )
     for name in raw:
         try:
             if ic == "waic":
                 out[name] = waic(out[name], pointwise=True, var_name=var_name, scale=scale)
+            elif ic == "kfold":
+                from .loo_kfold import loo_kfold
+
+                out[name] = loo_kfold(
+                    out[name], K=K if K is not None else 10, folds=folds, pointwise=True,
+                    var_name=var_name, scale=scale, stratify=stratify,
+                    random_seed=random_seed, save_fits=False,
+                )
             elif observations is not None:
                 from .loo_subsample import loo_subsample
 

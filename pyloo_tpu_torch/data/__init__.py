@@ -2,9 +2,9 @@
 
 ``load_example_data`` plays the role of ``arviz.load_arviz_data`` for the
 eight-schools posteriors the reference relies on (``centered_eight``,
-``non_centered_eight``).  It reads the ``.npz`` files bundled with
-``pyloo_tpu`` by path, from the sibling package's directory, without
-importing it.
+``non_centered_eight``) and loads the regression tables of the example
+models (``roaches``, ``wells``: Gelman & Hill 2007).  The files are bundled
+in this directory.
 """
 
 from __future__ import annotations
@@ -17,11 +17,7 @@ from ..containers import DataArray, Dataset, InferenceData
 
 __all__ = ["load_example_data"]
 
-_DATA_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "pyloo_tpu",
-    "data",
-)
+_DATA_DIR = os.path.dirname(os.path.abspath(__file__))
 
 _SCHOOLS = np.array(
     [
@@ -71,22 +67,32 @@ def _load_npz_idata(path: str) -> InferenceData:
     return InferenceData(**out)
 
 
-def load_example_data(name: str):
-    """Load a bundled dataset by name as :class:`InferenceData`.
+def read_csv_columns(path: str) -> dict:
+    """A numeric CSV with a header row as ``{column: float64 array}``.
 
-    ``centered_eight`` / ``non_centered_eight``.  The regression tables that
-    ``pyloo_tpu`` returns as pandas DataFrames (``roaches``, ``wells``) raise
-    :class:`NotImplementedError`: this package does not use pandas.
+    The header's names may be quoted (``"y","roach1",...``); the quotes are
+    stripped.  Plain numpy: the package does not use pandas.
+    """
+    with open(path) as fh:
+        names = [name.strip().strip('"') for name in fh.readline().strip().split(",")]
+    table = np.loadtxt(path, delimiter=",", skiprows=1, dtype=np.float64, ndmin=2)
+    return {name: np.ascontiguousarray(table[:, j]) for j, name in enumerate(names)}
+
+
+def load_example_data(name: str):
+    """Load a bundled dataset by name.
+
+    ``centered_eight`` / ``non_centered_eight`` return :class:`InferenceData`;
+    ``roaches`` / ``wells`` return their table as a dict of numpy columns
+    (float64), in the file's column order, where ``pyloo_tpu`` returns a
+    pandas DataFrame.
     """
     name = name.lower()
     if name in ("centered_eight", "non_centered_eight"):
         return _load_npz_idata(os.path.join(_DATA_DIR, f"{name}.npz"))
     if name in ("roaches", "wells"):
-        raise NotImplementedError(
-            f"{name!r} is a pandas DataFrame in pyloo_tpu; pyloo_tpu_torch does"
-            " not use pandas and does not load it"
-        )
+        return read_csv_columns(os.path.join(_DATA_DIR, f"{name}.csv"))
     raise ValueError(
         f"Unknown example dataset {name!r}; available: centered_eight, "
-        "non_centered_eight"
+        "non_centered_eight, roaches, wells"
     )

@@ -6,8 +6,8 @@ keeps the behaviour ``loo()`` results are used with (indexing by name,
 attribute access to rows, ``in``, ``get``) and renders the same report
 strings byte for byte (reference ``pyloo/elpd.py:10-97`` templates).  The
 ``loo`` (standard, mixture and approximate-posterior), subsampled ``loo``,
-``waic``, ``logo``, ``lfo`` and generic ``elpd`` kinds are rendered; the
-kfold and non-factorised kinds come with their estimators.
+``waic``, ``logo``, ``lfo``, ``kfold`` and generic ``elpd`` kinds are
+rendered; the non-factorised kind comes with its estimator.
 """
 
 from __future__ import annotations
@@ -54,6 +54,16 @@ Computed from {n_samples} by {n_points} log-likelihood matrix using the generic 
      Estimate       SE
 elpd   {elpd:<8.2f}    {se:<.2f}
 ic     {ic:<8.2f}    {ic_se:<.2f}"""
+
+KFOLD_BASE_FMT = """
+Computed from {n_samples} posterior samples using {K}-fold cross-validation
+with {n_points} observations.{stratify_msg}
+
+           Estimate       SE
+elpd_kfold   {elpd:<8.2f}    {se:<.2f}
+p_kfold       {p_kfold:<8.2f}    {p_kfold_se:<.2f}
+kfoldic      {kfoldic:<8.2f}    {kfoldic_se:<.2f}
+"""
 
 # LFO-CV is a pyloo_tpu extension (no reference analogue)
 LFO_BASE_FMT = """
@@ -211,10 +221,12 @@ class ELPDData:
             return self._format_logo()
         if first == "elpd_lfo":
             return self._format_lfo()
+        if first == "elpd_kfold":
+            return self._format_kfold()
         if first != "elpd_loo":
             raise NotImplementedError(
-                "pyloo_tpu_torch renders loo, subsampled loo, waic, logo, lfo and generic"
-                " elpd results; the other result kinds come with their estimators"
+                "pyloo_tpu_torch renders loo, subsampled loo, waic, logo, lfo, kfold and"
+                " generic elpd results; the non-factorised kind comes with its estimator"
             )
         if "subsampling_SE" in self:
             return self._format_subsample()
@@ -222,6 +234,28 @@ class ELPDData:
 
     def __repr__(self):
         return self.__str__()
+
+    def _format_kfold(self):
+        elpd = self["elpd_kfold"]
+        se = self["se"]
+        stratify_msg = (
+            " Using stratified k-fold cross-validation" if self.stratified else ""
+        )
+        base = KFOLD_BASE_FMT.format(
+            n_samples=self.n_samples,
+            K=self.get("K"),
+            n_points=self.n_data_points,
+            elpd=elpd,
+            se=se,
+            p_kfold=self["p_kfold"],
+            p_kfold_se=self["p_kfold_se"],
+            kfoldic=-2 * elpd,
+            kfoldic_se=2 * se,
+            stratify_msg=stratify_msg,
+        )
+        if self.warning:
+            base += _WARNING_NOTE
+        return base
 
     def _format_waic(self):
         elpd = self["elpd_waic"]

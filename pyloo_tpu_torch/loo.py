@@ -70,8 +70,8 @@ def loo(
     scale : {"log", "negative_log", "deviance"}, optional
     method : {"psis", "sis", "tis"}
     moment_match : bool
-        Not supported yet: raises :class:`NotImplementedError` (moment
-        matching comes with the port's refit slice).
+        Improve high-k observations by moment matching (requires pointwise
+        results and a model wrapper or the custom-function kwargs).
     jacobian : array-like, optional
         Additive Jacobian adjustment to the pointwise elpd for transformed
         response variables (requires ``pointwise=True``).
@@ -111,11 +111,10 @@ def loo(
             "Jacobian adjustment requires pointwise LOO results. "
             "Please set pointwise=True when using jacobian_adjustment."
         )
-    if moment_match:
-        raise NotImplementedError(
-            "moment_match=True is not supported by pyloo_tpu_torch yet; moment"
-            " matching comes with a later slice of the port (refits and moment"
-            " matching)"
+    if moment_match and not pointwise:
+        raise ValueError(
+            "Moment matching requires pointwise LOO results. "
+            "Please set pointwise=True when using moment_match=True."
         )
 
     log_likelihood = log_likelihood.stack(__sample__=("chain", "draw"))
@@ -282,6 +281,50 @@ def loo(
         result["p_loo_se"] = float(np.sqrt(np.sum(np.var(result.loo_i.values))))
         result["looic"] = -2 * loo_lppd
         result["looic_se"] = 2 * loo_lppd_se
+
+    if moment_match:
+        wrapper = kwargs.get("wrapper", None)
+        model_obj = wrapper
+        mm_kwargs = {
+            "max_iters": kwargs.get("max_iters", 30),
+            "k_threshold": kwargs.get("k_threshold", None),
+            "split": kwargs.get("split", True),
+            "cov": kwargs.get("cov", True),
+            "method": method,
+            "verbose": kwargs.get("verbose", False),
+        }
+        if wrapper is None:
+            model_obj = kwargs.get("model_obj", None)
+            if model_obj is None:
+                raise ValueError(
+                    "When moment_match=True and no `wrapper` is provided, the custom "
+                    "model object must be passed via the `model_obj` keyword argument."
+                )
+            custom_funcs = {
+                "post_draws": kwargs.get("post_draws", None),
+                "log_lik_i": kwargs.get("log_lik_i", None),
+                "unconstrain_pars": kwargs.get("unconstrain_pars", None),
+                "log_prob_upars_fn": kwargs.get("log_prob_upars_fn", None),
+                "log_lik_i_upars_fn": kwargs.get("log_lik_i_upars_fn", None),
+            }
+            mm_kwargs.update(custom_funcs)
+            missing = [k for k, v in custom_funcs.items() if v is None]
+            if missing:
+                raise ValueError(
+                    "When moment_match=True and no `wrapper` is provided, the"
+                    " following functions must be passed via kwargs:"
+                    f" {', '.join(missing)}"
+                )
+        handled = set(mm_kwargs) | {
+            "wrapper", "pointwise", "var_name", "reff", "scale", "method",
+            "moment_match", "jacobian", "mixture", "model_obj", "post_draws",
+            "log_lik_i", "unconstrain_pars", "log_prob_upars_fn",
+            "log_lik_i_upars_fn",
+        }
+        mm_kwargs.update({k: v for k, v in kwargs.items() if k not in handled})
+        from .loo_moment_match import loo_moment_match
+
+        result = loo_moment_match(model_obj, result, **mm_kwargs)
 
     return result
 

@@ -13,8 +13,10 @@ summed on the host in sequential float64 (:func:`_block_scores` says why);
 all ratio rows then go through one batched Pareto smoothing on the device,
 and the joint log-sum-exp runs there too, so no weights cross to the host.
 
-Refits (``wrapper=``) are not ported yet: they come with the port's model
-wrappers (``ROADMAP.md``, Queue 1 item 7).
+With a model ``wrapper``, the model is refit on ``y_{0:i-1}`` wherever a
+target's Pareto k̂ exceeds ``k_threshold`` (HMC on the device through
+:class:`pyloo_tpu_torch.models.JAXModelWrapper`), and the sweep continues
+from there.
 """
 
 from __future__ import annotations
@@ -110,10 +112,11 @@ def loo_lfo(
 
     Parameters
     ----------
-    data : InferenceData-convertible
+    data : InferenceData-convertible, optional
         Posterior **fit on the first L observations only**, carrying a
         log-likelihood group evaluated at **all** N time-ordered
-        observations.
+        observations.  Ignored when ``wrapper`` is given (the wrapper is
+        refit on the first ``L`` observations instead).
     L : int
         Minimum history length: the first predicted observation is index
         ``L`` (0-based), conditioned on observations ``0..L-1``.
@@ -122,12 +125,13 @@ def loo_lfo(
         (M-step-ahead; ``M=1`` is standard 1-SAP).
     var_name : str, optional
         Log-likelihood variable when several are stored.
-    wrapper : None
-        Exact refits at high-k̂ targets through a model wrapper are not
-        ported yet and raise :class:`NotImplementedError`; high-k̂ targets
-        keep their PSIS value and a warning summarizes them.
+    wrapper : JAXModelWrapper, optional
+        Enables exact refits whenever a target's Pareto k̂ exceeds
+        ``k_threshold``; without it, high-k̂ targets keep their (possibly
+        unreliable) PSIS value and a warning summarizes them.
     k_threshold : float, optional
-        Reliability threshold; defaults to ``min(1 - 1/log10(S), 0.7)``.
+        Refit / reliability threshold; defaults to
+        ``min(1 - 1/log10(S), 0.7)``.
     scale : str, optional
         "log" (default), "negative_log", or "deviance".
     reff : float, optional
@@ -136,13 +140,14 @@ def loo_lfo(
         Include per-target ``lfo_i`` and diagnostics (defaults to
         ``rcParams["stats.ic_pointwise"]``).
     sample_kwargs : dict, optional
-        The refits' sampler options; belongs to ``wrapper``.
+        Forwarded to ``wrapper.sample_posterior`` at every refit.
 
     Returns
     -------
     ELPDData
         Rows ``elpd_lfo``/``se``/``lfoic``/... plus per-target values and
-        Pareto k̂ when ``pointwise``.
+        Pareto k̂ when ``pointwise``; ``n_refits``/``refit_indices`` record
+        where exact refits happened.
     """
     if L is None:
         raise TypeError("loo_lfo requires the minimum history length L")
@@ -152,10 +157,9 @@ def loo_lfo(
     scale, scale_value = resolve_scale(scale)
 
     if wrapper is not None:
-        raise NotImplementedError(
-            "loo_lfo(wrapper=...) refits a model, which pyloo_tpu_torch does not support"
-            " yet: model wrappers come with the refit slice of the port (ROADMAP.md,"
-            " Queue 1 item 7)"
+        return _lfo_wrapper(
+            wrapper, L, M, k_threshold, scale, scale_value, pointwise,
+            sample_kwargs or {}, reff,
         )
     if data is None:
         raise TypeError("loo_lfo requires `data` (or a model `wrapper`)")
@@ -189,6 +193,59 @@ def loo_lfo(
     return _lfo_result(
         elpd, ks, np.array([], dtype=int), n_samples, L, M, scale, scale_value,
         k_threshold, pointwise, warn,
+    )
+
+
+def _lfo_wrapper(
+    wrapper, L, M, k_threshold, scale, scale_value, pointwise, sample_kwargs,
+    reff=None,
+):
+    n_obs = wrapper.n_obs
+    _validate_horizon(L, M, n_obs)
+    n_targets = n_obs - M - L + 1
+    elpd = np.empty(n_targets)
+    ks = np.zeros(n_targets)
+    refit_at: list[int] = []
+    n_samples = None
+
+    try:
+        i_star = L
+        while i_star <= n_obs - M:
+            # (re)fit on observations 0..i_star-1 of the ORIGINAL data
+            # (a prior refit left the wrapper holding a shorter history)
+            wrapper.reset_data()
+            selected, _ = wrapper.select_observations(np.arange(i_star))
+            wrapper.set_data(selected)
+            idata_fit = wrapper.sample_posterior(**sample_kwargs)
+            ll_f = wrapper.log_likelihood_i(np.arange(i_star, n_obs), idata_fit)
+            ll_f = np.asarray(ll_f, dtype=np.float64)
+            s_fit = ll_f.shape[0] * ll_f.shape[1]
+            n_samples = s_fit if n_samples is None else n_samples
+            reff_fit = reff if reff is not None else compute_reff(
+                idata_fit, None, s_fit
+            )
+            ll_f = ll_f.reshape(s_fit, -1).T  # (n_future, S)
+
+            t_max = n_obs - M - i_star + 1
+            e_blk, k_blk = _block_scores(ll_f, t_max, M, reff_fit)
+            if k_threshold is None:
+                k_threshold = good_k_threshold(s_fit)
+
+            bad = np.nonzero(k_blk > k_threshold)[0]
+            accept = int(bad[0]) if bad.size else t_max
+            off = i_star - L
+            elpd[off : off + accept] = e_blk[:accept]
+            ks[off : off + accept] = k_blk[:accept]
+            if accept == t_max:
+                break
+            refit_at.append(i_star + accept)  # next block starts here (t=0 exact)
+            i_star += accept
+    finally:
+        wrapper.reset_data()
+
+    return _lfo_result(
+        elpd, ks, np.asarray(refit_at, dtype=int), n_samples, L, M, scale,
+        scale_value, k_threshold, pointwise, warn=False,
     )
 
 

@@ -1,0 +1,261 @@
+"""Batched moment matching on the device for the wrapper path.
+
+Counterpart of ``pyloo_tpu/ops/moment_match.py`` (reference greedy loop:
+``pyloo/loo_moment_match.py:384-561``): all bad observations run at once as
+``(n_bad, S, P)`` tensors.  The affine transforms are batched linear algebra,
+the PSIS re-fits go through :func:`pyloo_tpu_torch.ops.psis.psislw_batch`, and
+the JAX program's vmapped ``lax.while_loop`` becomes a loop over passes with
+an ``active`` mask: a lane whose loop condition is false keeps its state bit
+for bit, as the JAX program's select gives it.
+
+Semantics replicate the host loop (``pyloo_tpu_torch.loo_moment_match``):
+
+* one pass tries shift, then shift-and-scale, then (optionally)
+  shift-and-cov, each computed from the CURRENT (possibly just-updated)
+  draws; a transform is accepted iff it strictly lowers Pareto k;
+* a lane leaves when a full pass accepts nothing, k falls to the
+  threshold, or the accepted-transform count passes ``max_iters``;
+* Cholesky failure in the covariance transform gives that lane the
+  identity mapping (``torch.linalg.cholesky_ex`` reports it per lane; the
+  host loop runs the same transform on one lane and warns);
+* any numerical failure in a candidate simply loses the ``k_new < k``
+  comparison (host loop: per-transform ``try/except`` skip).
+
+The tail length is one per call: the caller groups bad observations by
+their integer ``tail_length(S, r_eff_i)``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .psis import psislw_batch
+
+__all__ = [
+    "batched_moment_match",
+    "split_transform_halves",
+    "split_mixture_log_weights",
+]
+
+
+def split_transform_halves(upars, shift, scaling, mapping, mapping_inv, *, use_cov):
+    """Split-MM draw matrices: forward transform on the first S/2 draws,
+    inverse transform on the last S/2 (reference
+    ``pyloo/split_moment_match.py:141-161``).
+
+    The accumulated affine map is ``u -> (u - m) * scaling @ mapping.T + m +
+    shift`` with ``m`` the draw mean; its inverse uses ``mapping_inv``.
+
+    Returns ``(half_fwd, half_inv)``: each is ``upars`` with one half
+    replaced by the transformed draws.
+    """
+    S = upars.shape[0]
+    half = S // 2
+    mean = torch.mean(upars, dim=0)
+    centered = upars - mean[None, :]
+    fwd = centered * scaling[None, :]
+    if use_cov:
+        fwd = fwd @ mapping.T
+    fwd = fwd + (shift + mean)[None, :]
+    inv = centered
+    if use_cov:
+        inv = inv @ mapping_inv.T
+    inv = inv / scaling[None, :] + (mean - shift)[None, :]
+    half_fwd = torch.cat([fwd[:half], upars[half:]])
+    half_inv = torch.cat([upars[:half], inv[half:]])
+    return half_fwd, half_inv
+
+
+def split_mixture_log_weights(log_liki, log_prob_fwd, log_prob_inv_adj):
+    """Deterministic two-component-mixture importance log-weights.
+
+    The proposal is the 50/50 mixture of the forward- and inverse-
+    transformed halves, so the unnormalized log-weight of draw s is
+    ``-log p(y_i|s) + log p(s) - log(p_fwd(s) + p_inv(s))`` (the mixture 1/2
+    cancels in PSIS normalization).  ``log_prob_inv_adj`` must already carry
+    the inverse map's Jacobian correction.  NaN / +inf weights collapse to
+    -inf (reference ``pyloo/split_moment_match.py:220-242``).
+    """
+    lwi = -log_liki + log_prob_fwd - torch.logaddexp(log_prob_fwd, log_prob_inv_adj)
+    bad = torch.isnan(lwi) | (lwi == math.inf)
+    return torch.where(bad, -math.inf, lwi)
+
+
+def _plain_cov(x):
+    """``np.cov(x, rowvar=False)`` (ddof=1) of each ``(S, P)`` matrix in a batch."""
+    S = x.shape[-2]
+    xm = x - torch.mean(x, dim=-2, keepdim=True)
+    return xm.transpose(-1, -2) @ xm / (S - 1)
+
+
+def _weighted_cov(x, w):
+    """``np.cov(x, rowvar=False, aweights=w)`` of each matrix in a batch."""
+    v1 = torch.sum(w, dim=-1)
+    v2 = torch.sum(w * w, dim=-1)
+    mu = torch.sum(w[..., None] * x, dim=-2) / v1[..., None]
+    xm = x - mu[..., None, :]
+    return (w[..., None] * xm).transpose(-1, -2) @ xm / (v1 - v2 / v1)[..., None, None]
+
+
+def _transform(uparsi, lwi, kind: int):
+    """One affine moment-matching transform of each lane's draw matrix.
+
+    ``uparsi`` (n, S, P), ``lwi`` (n, S).  kind 0: weighted-mean shift;
+    1: + marginal scale; 2: + covariance via the Cholesky map
+    ``L_w L^-1`` from a triangular solve.  The host transforms of
+    :mod:`pyloo_tpu_torch.loo_moment_match` run it on one lane, so the host
+    loop and the batched loop transform their draws with the same arithmetic.
+
+    Returns (upars_new, shift, scaling, mapping, ok), batched over lanes;
+    ``ok`` is False on a lane whose Cholesky factorisation failed (its
+    mapping is then the identity).
+    """
+    n, S, P = uparsi.shape
+    w = torch.exp(lwi)
+    mean_original = torch.mean(uparsi, dim=1)
+    mean_weighted = torch.sum(w[..., None] * uparsi, dim=1)
+    shift = mean_weighted - mean_original
+    eye = torch.eye(P, dtype=uparsi.dtype, device=uparsi.device).expand(n, P, P)
+    ones = torch.ones((n, P), dtype=uparsi.dtype, device=uparsi.device)
+    ok = torch.ones((n,), dtype=torch.bool, device=uparsi.device)
+
+    if kind == 0:
+        return uparsi + shift[:, None, :], shift, ones, eye, ok
+
+    if kind == 1:
+        mii = torch.sum(w[..., None] * uparsi**2, dim=1) - mean_weighted**2
+        mii = mii * S / (S - 1)
+        scaling = torch.sqrt(mii / torch.var(uparsi, dim=1, correction=0))
+        new = (uparsi - mean_original[:, None, :]) * scaling[:, None, :] + (
+            mean_weighted[:, None, :]
+        )
+        return new, shift, scaling, eye, ok
+
+    covv = _plain_cov(uparsi)
+    wcovv = _weighted_cov(uparsi, w)
+    chol1, info1 = torch.linalg.cholesky_ex(wcovv)
+    chol2, info2 = torch.linalg.cholesky_ex(covv)
+    # chol1 @ chol2^{-1} as the solution X of X @ chol2 = chol1
+    mapping = torch.linalg.solve_triangular(chol2, chol1, upper=False, left=False)
+    # a lane whose factorisation failed takes the identity mapping
+    ok = (info1 == 0) & (info2 == 0) & torch.isfinite(mapping).all(dim=(-2, -1))
+    mapping = torch.where(ok[:, None, None], mapping, eye)
+    new = (uparsi - mean_original[:, None, :]) @ mapping.transpose(-1, -2) + (
+        mean_weighted[:, None, :]
+    )
+    return new, shift, ones, mapping, ok
+
+
+def batched_moment_match(
+    upars,
+    obs_idx,
+    orig_log_prob,
+    log_liki0,
+    lwi0,
+    ki0,
+    k_threshold: float,
+    *,
+    log_prob_fn,
+    log_lik_col_fn,
+    tail_max: int,
+    max_iters: int,
+    use_cov: bool,
+):
+    """Greedy moment matching for every bad observation, on the device.
+
+    Parameters
+    ----------
+    upars : (S, P) tensor
+        Unconstrained posterior draws (shared starting point).
+    obs_idx : (n_bad,) int64 tensor
+        Observation indices with k above the threshold.
+    orig_log_prob : (S,)
+        Log joint density of the ORIGINAL draws.
+    log_liki0 : (n_bad, S)
+        Log likelihood of each bad observation at the original draws.
+    lwi0 : (n_bad, S)
+        Initial smoothed normalized log weights per bad observation.
+    ki0 : (n_bad,)
+        Initial Pareto k per bad observation.
+    k_threshold : float
+    log_prob_fn : callable
+        ``(n_bad, S, P) -> (n_bad, S)`` log joint density.
+    log_lik_col_fn : callable
+        ``((n_bad, S, P), obs_idx) -> (n_bad, S)``: each lane's observation's
+        log likelihood at its draws.
+    tail_max : int
+        Shared PSIS tail budget of these lanes.
+
+    Returns
+    -------
+    dict with per-observation finals: ``lwi``, ``ki``, ``kfi``,
+    ``log_liki``, ``total_shift``, ``total_scaling``, ``total_mapping``,
+    ``n_accepted`` (= iterind - 1), ``reached_max``; and ``passes``, the
+    passes run (an int).
+
+    The loop reads one flag on the host a pass (whether any lane is still
+    active): at most ``max_iters + 1`` reads, since an active lane has
+    accepted at least one transform in each earlier pass.
+    """
+    n = obs_idx.shape[0]
+    S, P = upars.shape
+    dtype, device = upars.dtype, upars.device
+    st = {
+        "upars": upars.expand(n, S, P),
+        "lwi": lwi0,
+        "ki": ki0,
+        "kfi": torch.zeros((n,), dtype=dtype, device=device),
+        "log_liki": log_liki0,
+        "total_shift": torch.zeros((n, P), dtype=dtype, device=device),
+        "total_scaling": torch.ones((n, P), dtype=dtype, device=device),
+        "total_mapping": torch.eye(P, dtype=dtype, device=device).expand(n, P, P),
+    }
+    iterind = torch.ones((n,), dtype=torch.int64, device=device)
+    kinds = (0, 1, 2) if use_cov else (0, 1)
+
+    def upd(accept, new, old):
+        return torch.where(accept.reshape((-1,) + (1,) * (new.ndim - 1)), new, old)
+
+    active = (iterind <= max_iters) & (st["ki"] > k_threshold)
+    passes = 0
+    while bool(active.any()):  # the pass's one host read
+        passes += 1
+        progressing = torch.zeros((n,), dtype=torch.bool, device=device)
+        for kind in kinds:
+            new_upars, shift, scaling, mapping, _ = _transform(st["upars"], st["lwi"], kind)
+            log_prob_new = log_prob_fn(new_upars)
+            log_liki_new = log_lik_col_fn(new_upars, obs_idx)
+            lr = -log_liki_new + log_prob_new - orig_log_prob[None, :]
+            lr = torch.where(torch.isnan(lr), -math.inf, lr)
+            lwi_new, ki_new = psislw_batch(lr, tail_max)
+            full_lr = log_prob_new - orig_log_prob[None, :]
+            full_lr = torch.where(torch.isnan(full_lr), -math.inf, full_lr)
+            _, kfi_new = psislw_batch(full_lr, tail_max)
+
+            # NaN candidates lose (host: skip); inactive lanes keep their state
+            accept = active & (ki_new < st["ki"])
+            st = {
+                "upars": upd(accept, new_upars, st["upars"]),
+                "lwi": upd(accept, lwi_new, st["lwi"]),
+                "ki": upd(accept, ki_new, st["ki"]),
+                "kfi": upd(accept, kfi_new, st["kfi"]),
+                "log_liki": upd(accept, log_liki_new, st["log_liki"]),
+                "total_shift": upd(accept, st["total_shift"] + shift, st["total_shift"]),
+                "total_scaling": upd(
+                    accept, st["total_scaling"] * scaling, st["total_scaling"]
+                ),
+                "total_mapping": upd(
+                    accept, mapping @ st["total_mapping"], st["total_mapping"]
+                ),
+            }
+            iterind = iterind + accept.to(iterind.dtype)
+            progressing = progressing | accept
+        active = active & (iterind <= max_iters) & (st["ki"] > k_threshold) & progressing
+
+    del st["upars"]
+    st["n_accepted"] = iterind - 1
+    st["reached_max"] = iterind > max_iters
+    st["passes"] = passes
+    return st

@@ -145,11 +145,13 @@ def test_not_pointwise_and_argument_errors():
 
 
 def test_kfold_and_subsampling_raise_with_their_roadmap_items():
-    # kfold waits for its roadmap item; subsampling (Queue 1 item 4) came
-    # with loo_subsample and scores each raw model on its subsample, as
-    # pyloo_tpu does (numpy's global stream seeded alike for both)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tpl.loo_compare(TORCH_MODELS, ic="kfold")
+    # kfold on raw data refits model wrappers (tests/test_torch_refit.py) and
+    # raises on InferenceData, as pyloo_tpu does; subsampling (Queue 1 item
+    # 4) came with loo_subsample and scores each raw model on its subsample,
+    # as pyloo_tpu does (numpy's global stream seeded alike for both)
+    for pkg, models in ((jpl, JAX_MODELS), (tpl, TORCH_MODELS)):
+        with pytest.raises(TypeError, match="Encountered error trying to compute kfold"):
+            pkg.loo_compare(models, ic="kfold")
     np.random.seed(5)
     table, _ = _quiet(tpl.loo_compare, TORCH_MODELS, observations=10)
     np.random.seed(5)

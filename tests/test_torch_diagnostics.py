@@ -276,10 +276,17 @@ def test_loo_group_errors_and_warnings():
 def test_other_report_kinds_say_they_are_not_rendered(first, extra):
     rows = [first, "se", "n_samples", "n_data_points", "warning"] + extra
     values = [0.0, 1.0, 10, 5, False] + [0.1] * len(extra)
-    res = tpl.ELPDData(values, rows)
     if first == "elpd_kfold":
-        with pytest.raises(NotImplementedError, match="come with their estimators"):
-            str(res)
+        # the kfold kind came with loo_kfold: rendered as pyloo_tpu renders it
+        rows = rows + ["p_kfold", "p_kfold_se", "K", "stratified"]
+        values = values + [1.5, 0.5, 4, True]
+        tres, jres = tpl.ELPDData(values, rows), jpl.ELPDData(data=values, index=rows)
+        for res in (tres, jres):
+            res.K, res.stratified = 4, True
+        assert str(tres) == str(jres)
+        assert "4-fold cross-validation" in str(tres)
+        with pytest.raises(NotImplementedError, match="non-factorised kind"):
+            str(tpl.ELPDData([0.0, 1.0], ["elpd_nonfactor", "se"]))
         return
     # the subsample kind came with loo_subsample: rendered as pyloo_tpu renders it
     rows, values = rows + ["p_loo", "subsample_size"], values + [2.5, 4]

@@ -28,8 +28,17 @@ for name in ("base", "psis", "sis", "tis", "waic", "loo_i", "e_loo", "loo_predic
              "compare", "loo_score", "loo_lfo", "ops.stacking", "streaming.waic",
              "streaming.score", "streaming.compare", "_native", "io", "constants",
              "estimators", "approximations", "loo_approximate_posterior", "loo_subsample",
-             "streaming.expectations", "streaming.group", "streaming.subsample"):
+             "streaming.expectations", "streaming.group", "streaming.subsample",
+             "models", "models.wrapper", "models.hmc", "models.examples",
+             "models.batched_refit", "helpers", "ops.moment_match", "split_moment_match",
+             "loo_moment_match", "loo_kfold", "reloo"):
     importlib.import_module("pyloo_tpu_torch." + name)
+
+# the bundled data lie inside the package
+import pathlib
+from pyloo_tpu_torch.data import _DATA_DIR
+package = pathlib.Path(pl.__file__).resolve().parent
+assert package in pathlib.Path(_DATA_DIR).resolve().parents, _DATA_DIR
 
 pl.rcParams["device.device"] = "cpu"
 res = pl.loo(pl.load_example_data("centered_eight"))
@@ -136,6 +145,26 @@ with pl.NpyLogLik(npy) as src:
     assert src.is_native and src.n_obs == 8
     assert abs(pl.loo_streaming(src, 8, 2000)["elpd_loo"] - pl.loo(eight, reff=1.0)["elpd_loo"]) < 1e-9
 assert "subsampled" in str(pl.loo_subsample(eight, observations=4, seed=0))
+# the model wrappers: a fit, moment matching and refits
+roaches = pl.models.roaches_model()
+fit_kw = dict(draws=20, tune=20, chains=2, num_leapfrog=2, seed=0)
+roach_fit = pl.models.fit(roaches, **fit_kw)
+assert pl.load_example_data("wells")["switch"].shape == (3020,)
+roach_w = pl.JAXModelWrapper(roaches, roach_fit, sample_kwargs=fit_kw)
+roach_loo = pl.loo(roach_fit, pointwise=True)
+mm = pl.loo(roach_fit, pointwise=True, moment_match=True, wrapper=roach_w, max_iters=2)
+assert np.isfinite(mm["elpd_loo"])
+refits = {
+    "fit": lambda: pl.models.fit(roaches, **fit_kw),
+    "loo_moment_match": lambda: pl.loo_moment_match(roach_w, roach_loo, max_iters=1),
+    "loo_kfold": lambda: pl.loo_kfold(roach_w, K=2, random_seed=0),
+    "reloo": lambda: pl.reloo(roach_w, loo_orig=roach_loo, k_thresh=10.0),
+    "kfold_refit_batched": lambda: __import__(
+        "pyloo_tpu_torch.models.batched_refit", fromlist=["x"]).kfold_refit_batched(
+        roaches, np.arange(10).reshape(2, 5), np.arange(10, 12).reshape(2, 1), **fit_kw),
+}
+assert pl.loo_kfold(roach_w, K=2, random_seed=0)["K"] == 2
+weights_path.update(refits)
 loaded = [m for m, mod in sys.modules.items() if mod is not None]
 assert not any(m == "pyloo_tpu" or m.startswith(("pyloo_tpu.", "jax", "pandas")) for m in loaded)
 

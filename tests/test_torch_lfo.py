@@ -115,7 +115,11 @@ def test_validation_and_wrapper():
         tpl.loo_lfo(TID, L=0)
     with pytest.raises(TypeError, match="requires `data`"):
         tpl.loo_lfo(L=10)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    # a wrapper is refit (tests/test_torch_refit.py); an object that is not
+    # one fails as it does in pyloo_tpu
+    with pytest.raises(AttributeError, match="n_obs"):
+        jpl.loo_lfo(L=10, wrapper=object())
+    with pytest.raises(AttributeError, match="n_obs"):
         tpl.loo_lfo(L=10, wrapper=object())
 
 

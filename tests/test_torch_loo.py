@@ -287,7 +287,9 @@ def test_float32_envelope_against_float64(k_true, s):
 def test_unported_options_raise(precision):
     precision("float64")
     _, tid = _eight()
-    with pytest.raises(NotImplementedError, match="moment_match"):
+    # moment matching came with the model wrappers
+    # (tests/test_torch_moment_match.py); without a model it raises as in pyloo_tpu
+    with pytest.raises(ValueError, match="model_obj"):
         tpl.loo(tid, pointwise=True, moment_match=True)
     with pytest.raises(ValueError, match="Invalid method"):
         tpl.loo(tid, method="bogus")
