@@ -91,7 +91,22 @@ Phases:
    memory against its budget, the host loop over 8, each timed per
    observation; (c) ``loo_kfold`` on ``wells_model()`` (3,020 observations,
    K = 10) as one batched HMC run of 40 chains, and ``reloo`` on the roaches
-   fit batched over its k > 0.7 observations, each against the PSIS elpd.
+   fit batched over its k > 0.7 observations, each against the PSIS elpd;
+11. the NUTS and ChEES samplers, the Laplace and ADVI fits and
+   non-factorised LOO, in float64, each public call a launch window of its
+   own: (a) ``fit(eight_schools_noncentered(), algorithm="nuts")``, 4 chains
+   x 500 + 500 at max_depth 8, and (b) ``algorithm="chees"``, 16 chains x
+   500 + 500, each step loop under sync debug mode "error" but for its
+   counted host reads (one a doubling, one an iteration), with split-R-hat
+   < 1.05 on mu and tau; (c) ``Laplace`` and ``ADVI`` (mean-field and
+   full-rank, 2,000 steps) of ``wells_model()``, 4 x 1,000 draws each, each
+   through ``loo_approximate_posterior`` within 1.0 (Laplace) or 5.0 (ADVI,
+   not converged at 2,000 steps) of the PSIS elpd_loo of phase 10c's
+   Laplace draws; (d) ``loo_nonfactor`` on a joint MVN, N = 512,
+   S = 4,000 (8.4 GB of float64 matrices, copied to the card a chunk at a
+   time) in the ``cov``, ``student_t``, ``prec`` and diagonal forms, held to
+   the CPU path on 64 draws (1e-10), ``cov`` to ``prec`` (1e-8) and the
+   diagonal form to ``loo()`` of the pointwise normal log-likelihood.
 
 Every main path runs with the kernels' launch counters set to 0 just before
 it and read just after; comparisons with the plain versions run outside
@@ -2004,6 +2019,262 @@ def phase_refits(pl, smi: str) -> None:
     print(f"  card  {smi}", flush=True)
 
 
+def phase_fits(pl, smi: str) -> None:
+    """Phase 11: the NUTS and ChEES samplers, the Laplace and ADVI fits and
+    non-factorised LOO, float64."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from pyloo_tpu_torch.models import chees, hmc, nuts
+    from pyloo_tpu_torch.models.wrapper import idata_from_flat_draws
+    from pyloo_tpu_torch.ops.ess import rhat
+
+    print(f"phase 11: NUTS, ChEES, Laplace, ADVI and loo_nonfactor, float64 ({smi})", flush=True)
+    pl.rcParams["device.device"] = "cuda"
+    pl.rcParams["device.precision"] = "float64"
+    timings: dict = {}
+
+    # each sampler's step loop runs under sync debug mode "error"; its one
+    # host read a doubling (NUTS) or an iteration (ChEES) goes through
+    # hmc._host_value, which is counted and let through; the gradient
+    # evaluations are counted on the host
+    real = {"nuts": nuts._run_chains, "chees": chees._run_chains, "read": hmc._host_value}
+    runs, reads = {}, [0]
+
+    def strict(name):
+        def run(value_and_grad, *args, **kwargs):
+            calls = [0]
+
+            def counted(q):
+                calls[0] += 1
+                return value_and_grad(q)
+
+            reads[0] = 0
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = real[name](counted, *args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            runs[name] = {"out": out, "grad_calls": calls[0], "steps": args[2] + args[3],
+                          "reads": reads[0]}
+            return out
+
+        return run
+
+    def counted_read(x):
+        reads[0] += 1
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return real["read"](x)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    nuts._run_chains, chees._run_chains = strict("nuts"), strict("chees")
+    hmc._host_value = counted_read
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            eight = pl.models.eight_schools_noncentered()
+            # (a) NUTS, 4 chains x (500 + 500), max_depth 8
+            what = "fit(eight_schools_noncentered(), algorithm='nuts', 4 chains x 500 + 500)"
+            idata = timed_call(what, lambda: pl.models.fit(eight, draws=500, tune=500, chains=4,
+                                                           seed=1, algorithm="nuts"), timings)
+            r, t = runs["nuts"], timings[what]
+            _, acc, depth, div, doublings = r["out"]
+            depth = depth.cpu().numpy()
+            t.update(steps=r["steps"], ms_per_step=1e3 * t["wall_s"] / r["steps"],
+                     ms_per_draw=1e3 * t["wall_s"] / (4 * r["steps"]),
+                     mean_depth=float(depth.mean()), leaves_per_draw=float((2.0**depth - 1).mean()),
+                     grad_calls_per_step=(r["grad_calls"] - 1) / r["steps"],
+                     divergences=int(div.sum()), accept=float(acc.mean()),
+                     doublings=doublings, reads=r["reads"],
+                     rhat=max(rhat(idata.posterior[v].values) for v in ("mu", "tau")))
+            check(t["rhat"] < 1.05 and t["reads"] == doublings
+                  and np.isfinite(idata.sample_stats["_flat_draws"].values).all(),
+                  f"{what}: {t['ms_per_step']:.3f} ms a transition of the 4 chains"
+                  f" ({t['ms_per_draw']:.3f} ms a draw); mean tree depth {t['mean_depth']:.3f},"
+                  f" {t['leaves_per_draw']:.2f} leaves a chain's draw,"
+                  f" {t['grad_calls_per_step']:.2f} gradient calls a transition (lockstep);"
+                  f" {t['divergences']} divergences after warmup; accept_stat {t['accept']:.3f};"
+                  f" host reads {t['reads']} = doublings {doublings}; max split-R-hat of mu,"
+                  f" tau {t['rhat']:.4f} (< 1.05)")
+
+            # (b) ChEES, 16 chains x (500 + 500)
+            what = "fit(eight_schools_noncentered(), algorithm='chees', 16 chains x 500 + 500)"
+            idata = timed_call(what, lambda: pl.models.fit(eight, draws=500, tune=500,
+                                                           seed=1, algorithm="chees"), timings)
+            r, t = runs["chees"], timings[what]
+            _, acc, steps = r["out"]
+            t.update(steps=r["steps"], ms_per_step=1e3 * t["wall_s"] / r["steps"],
+                     leapfrog_warmup=float(np.mean(steps[:500])),
+                     leapfrog_sampling=float(np.mean(steps[500:])), leapfrog_max=max(steps),
+                     grad_calls=r["grad_calls"], accept=float(acc.mean()), reads=r["reads"],
+                     rhat=max(rhat(idata.posterior[v].values) for v in ("mu", "tau")))
+            check(t["rhat"] < 1.05 and t["reads"] == r["steps"] == len(steps)
+                  and t["grad_calls"] == sum(steps) + 1
+                  and idata.posterior["mu"].values.shape == (16, 500),
+                  f"{what}: {t['ms_per_step']:.3f} ms an iteration of the 16 chains; leapfrog"
+                  f" steps an iteration {t['leapfrog_warmup']:.2f} in warmup,"
+                  f" {t['leapfrog_sampling']:.2f} after (max {t['leapfrog_max']}); accept"
+                  f" {t['accept']:.3f}; host reads {t['reads']} = iterations {r['steps']};"
+                  f" max split-R-hat of mu, tau {t['rhat']:.4f} (< 1.05)")
+    finally:
+        nuts._run_chains, chees._run_chains = real["nuts"], real["chees"]
+        hmc._host_value = real["read"]
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        # (c) Laplace and ADVI on wells, each into loo_approximate_posterior,
+        # held to the PSIS elpd_loo of phase 10c's Laplace draws (the same
+        # draws): Laplace within 1.0; ADVI within 5.0, since at 2,000 Adam
+        # steps its fits are not converged and the importance correction
+        # keeps a bias of a few nats (pyloo_tpu's own on the CPU, seeds 0-2:
+        # mean-field -1969.1 to -1969.7, full-rank -1972.1 to -1972.9)
+        wells = pl.models.wells_model()
+        wfit = idata_from_flat_draws(wells, laplace_draws(pl, wells, np.zeros(3), seed=3))
+        ref = pl.loo(wfit)["elpd_loo"]
+        approx = {"Laplace": (pl.Laplace(wells), 1.0),
+                  "ADVI meanfield": (pl.ADVI(wells, "meanfield"), 5.0),
+                  "ADVI fullrank": (pl.ADVI(wells, "fullrank"), 5.0)}
+        for name, (fitter, tol) in approx.items():
+            what = f"{name}(wells_model()).fit(" + (
+                "draws=1,000, chains=4)" if name == "Laplace" else "n=2,000, draws=1,000, chains=4)")
+            if name == "Laplace":
+                res = timed_call(what, lambda: fitter.fit(draws=1000, chains=4, seed=0), timings)
+                extra = f"warnings {res.warnings}"
+            else:
+                res = timed_call(what, lambda: fitter.fit(n=2000, draws=1000, chains=4, seed=0),
+                                 timings)
+                extra = (f"{1e3 * timings[what]['wall_s'] / 2000:.3f} ms an Adam step (with"
+                         f" the draws' log-likelihood), -ELBO {res.elbo_trace[-1]:.3f}")
+            lw = pl.models.compute_log_weights(fitter)
+            what_l = f"loo_approximate_posterior({name} of wells)"
+            loo = timed_call(what_l, lambda: pl.loo_approximate_posterior(
+                res.idata, lw, np.zeros_like(lw), pointwise=True, seed=0), timings)
+            d = loo["elpd_loo"] - ref
+            check(abs(d) <= tol and np.isfinite(lw).all(),
+                  f"{what}: {timings[what]['wall_s']:.3f} s, {extra}; elpd_loo"
+                  f" {loo['elpd_loo']:.3f} against the PSIS {ref:.3f} of phase 10c's Laplace"
+                  f" draws (d {d:+.3f}, {tol} allowed); {int(np.sum(loo.pareto_k.values > 0.7))}"
+                  f" observations k > 0.7")
+
+        # (d) loo_nonfactor on a joint MVN, N = 512, S = 4,000
+        phase_nonfactor(pl, timings)
+
+    launched = {what: t["launches"] for what, t in timings.items() if any(t["launches"].values())}
+    check(not launched, "phase 11 runs in float64 and launches none of kernels A to D in any of"
+          f" its {len(timings)} windows" + (f"; launched: {launched}" if launched else ""))
+    print(f"  card  {smi}", flush=True)
+
+
+def phase_nonfactor(pl, timings: dict, n: int = 512, chains: int = 4, draws: int = 1000,
+                    seed: int = 11) -> None:
+    """Phase 11d: ``loo_nonfactor`` on a joint MVN of ``n`` observations with
+    an exponential-kernel covariance, sigma^2 exp(-d / ell) + tau^2 I, at
+    ``n`` points on [0, 100]; each draw's mean, sigma, ell and tau are
+    jittered around the truth (the way ``tests/test_nonfactor.py``'s fixture
+    draws them).  The (S, n, n) float64 matrices are made on the card a
+    chunk at a time into one host array, which ``loo_nonfactor`` copies back
+    a chunk of draws at a time."""
+    import numpy as np
+    import torch
+
+    from pyloo_tpu_torch.ops import nonfactor
+
+    S = chains * draws
+    rng = np.random.default_rng(seed)
+    x = np.sort(rng.uniform(0.0, 100.0, n))
+    dist = torch.tensor(np.abs(x[:, None] - x[None, :]), device="cuda")
+    eye = torch.eye(n, dtype=torch.float64, device="cuda")
+    truth = np.array([1.0, 10.0, 0.3])  # sigma, ell, tau
+    mu_true = rng.normal(0.0, 1.0, n)
+    y = rng.multivariate_normal(
+        mu_true, truth[0] ** 2 * np.exp(-np.abs(x[:, None] - x[None, :]) / truth[1])
+        + truth[2] ** 2 * np.eye(n))
+    mus = mu_true + rng.normal(0.0, 0.05, size=(chains, draws, n))
+    theta = truth * np.exp(rng.normal(0.0, 0.05, size=(S, 3)))
+    df = rng.uniform(4.0, 30.0, size=(chains, draws))
+    gb = S * n * n * 8 / 1e9
+    t = time.perf_counter()
+    mats = np.empty((chains, draws, n, n))
+    print(f"phase 11d: loo_nonfactor at N = {n}, S = {S} ({gb:.1f} GB of float64 matrices,"
+          f" {math.ceil(S / nonfactor.draws_per_chunk(n))} chunks of"
+          f" {nonfactor.draws_per_chunk(n)} draws)", flush=True)
+
+    def fill(kind):
+        """The draws' covariances, precisions or diagonal covariances into ``mats``."""
+        flat = torch.from_numpy(mats.reshape(S, n, n))
+        th = torch.tensor(theta, device="cuda")
+        for a in range(0, S, 250):
+            part = th[a:a + 250, :, None, None]
+            s2, ell, tau2 = part[:, 0] ** 2, part[:, 1], part[:, 2] ** 2
+            if kind == "diag":
+                block = (s2 + tau2) * eye
+            else:
+                block = s2 * torch.exp(-dist / ell) + tau2 * eye
+                if kind == "prec":
+                    block = torch.cholesky_inverse(torch.linalg.cholesky(block))
+            flat[a:a + 250].copy_(block)
+
+    def posterior(**extra):
+        return pl.from_dict(posterior={"mu": mus, **extra}, observed_data={"y": y})
+
+    fill("cov")
+    print(f"  made the covariances in {time.perf_counter() - t:.1f} s (set-up)", flush=True)
+    res = {}
+    for form, idata, kw in (("cov", posterior(cov=mats), {}),
+                            ("student_t", posterior(cov=mats, df=df), {"model_type": "student_t"})):
+        what = f"loo_nonfactor({form}, N = {n}, S = {S})"
+        res[form] = timed_call(what, lambda: pl.loo_nonfactor(idata, pointwise=True, reff=1.0,
+                                                              **kw), timings)
+        # the card against the port's CPU path on the first 64 draws
+        cut = pl.from_dict(posterior={"mu": mus[:1, :64], "cov": mats[:1, :64],
+                                      "df": df[:1, :64]}, observed_data={"y": y})
+        card = pl.loo_nonfactor(cut, pointwise=True, reff=1.0, **kw)
+        host = on_cpu(pl, lambda: pl.loo_nonfactor(cut, pointwise=True, reff=1.0, **kw))
+        # within 1e-10 as the parity tests read it: |d| <= 1e-10 (1 + |cpu value|)
+        d = {key: float(np.max(np.abs(np.asarray(card[key]) - np.asarray(host[key]))
+                               / (1.0 + np.abs(np.asarray(host[key])))))
+             for key in ("elpd_loo", "p_loo", "loo_i", "pareto_k")}
+        r = res[form]
+        check(np.isfinite(r.loo_i.values).all() and max(d.values()) <= 1e-10,
+              f"{what}: {timings[what]['wall_s']:.3f} s, peak device memory"
+              f" {timings[what]['peak_gb']:.3f} GB; elpd_loo {r['elpd_loo']:.3f}, p_loo"
+              f" {r['p_loo']:.3f}, {int(np.sum(r.pareto_k.values > 0.7))} of {n} k > 0.7; on 64"
+              f" draws the card against the CPU, max |d| / (1 + |cpu|) (1e-10): "
+              + ", ".join(f"{key} {v:.3g}" for key, v in d.items()))
+    t = time.perf_counter()
+    fill("prec")
+    print(f"  made the precisions in {time.perf_counter() - t:.1f} s (set-up)", flush=True)
+    what = f"loo_nonfactor(prec, N = {n}, S = {S})"
+    res["prec"] = timed_call(what, lambda: pl.loo_nonfactor(posterior(prec=mats), pointwise=True,
+                                                            reff=1.0), timings)
+    d_i = float(np.abs(res["prec"].loo_i.values - res["cov"].loo_i.values).max())
+    d_e = abs(res["prec"]["elpd_loo"] - res["cov"]["elpd_loo"]) / abs(res["cov"]["elpd_loo"])
+    check(d_i <= 1e-8 and d_e <= 1e-8,
+          f"{what}: {timings[what]['wall_s']:.3f} s, peak device memory"
+          f" {timings[what]['peak_gb']:.3f} GB; against the cov form: max |d loo_i| {d_i:.3g},"
+          f" relative d elpd_loo {d_e:.3g} (1e-8 each)")
+    t = time.perf_counter()
+    fill("diag")
+    print(f"  made the diagonal covariances in {time.perf_counter() - t:.1f} s (set-up)",
+          flush=True)
+    what = f"loo_nonfactor(diagonal cov, N = {n}, S = {S})"
+    diag = timed_call(what, lambda: pl.loo_nonfactor(posterior(cov=mats), pointwise=True,
+                                                     reff=1.0), timings)
+    var = (theta[:, 0] ** 2 + theta[:, 2] ** 2).reshape(chains, draws, 1)
+    ll = -0.5 * np.log(2 * np.pi * var) - 0.5 * (y - mus) ** 2 / var
+    plain = pl.loo(pl.from_dict(posterior={"mu": mus}, log_likelihood={"obs": ll}),
+                   pointwise=True, reff=1.0)
+    d = float(np.abs(diag.loo_i.values - plain.loo_i.values).max())
+    check(d <= 1e-8, f"{what}: {timings[what]['wall_s']:.3f} s; against loo() of the pointwise"
+          f" normal log-likelihood: max |d loo_i| {d:.3g} (1e-8), elpd_loo"
+          f" {diag['elpd_loo']:.3f} / {plain['elpd_loo']:.3f}")
+
+
 def phase_baseline(pl):
     print("phase 4: loo(centered_eight) against the published baseline", flush=True)
     want = {"elpd_loo": -30.7807, "se": 1.3435, "p_loo": 0.9472, "looic": 61.5613}
@@ -2113,6 +2384,7 @@ def main() -> int:
     phase_subsample(pl, ll_host, beta, model, reff, res32, phase5, smi)
     del ll_host, model
     phase_refits(pl, smi)
+    phase_fits(pl, smi)
 
     for key, kern in kernels.items():
         kern["launches"] = PATH_LAUNCHES[KERNEL_COUNTERS[key]]

@@ -16,8 +16,10 @@ posteriors (``loo_approximate_posterior``, ``importance_resample``), every
 ``loo_streaming()`` through a hand-written CUDA prepass kernel); and the
 workflows that refit or re-weight a model (``Model``, ``JAXModelWrapper``,
 ``loo(moment_match=True)`` / ``loo_moment_match``, ``loo_kfold``,
-``reloo``), whose models are torch functions sampled by HMC on the device
-(:mod:`pyloo_tpu_torch.models`).
+``reloo``), whose models are torch functions sampled by HMC, NUTS or ChEES
+on the device or fitted by ``Laplace`` and ``ADVI``
+(:mod:`pyloo_tpu_torch.models`); and LOO for non-factorised normal and
+Student-t models (``loo_nonfactor``).
 The device is ``rcParams["device.device"]`` (``"cuda"`` by default; set
 ``"cpu"`` to compute on the CPU).
 
@@ -89,7 +91,8 @@ from .loo_lfo import loo_lfo
 from .loo_score import LooScoreResult, crps, loo_score, scrps
 from .loo_predictive_metric import MetricResult, loo_predictive_metric
 from .loo_subsample import loo_subsample, update_subsample
-from .models import JAXModelWrapper, Model
+from .loo_nonfactor import loo_nonfactor
+from .models import ADVI, JAXModelWrapper, Laplace, Model
 from .psis import CompactWeights, psislw, psislw_compact
 from .rcparams import rcParams
 from .reloo import reloo
@@ -181,6 +184,9 @@ __all__ = [
     "reloo",
     "JAXModelWrapper",
     "Model",
+    "ADVI",
+    "Laplace",
+    "loo_nonfactor",
     "loo_moment_match",
     "loo_moment_match_split",
     "ParameterConverter",

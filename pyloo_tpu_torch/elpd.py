@@ -6,8 +6,8 @@ keeps the behaviour ``loo()`` results are used with (indexing by name,
 attribute access to rows, ``in``, ``get``) and renders the same report
 strings byte for byte (reference ``pyloo/elpd.py:10-97`` templates).  The
 ``loo`` (standard, mixture and approximate-posterior), subsampled ``loo``,
-``waic``, ``logo``, ``lfo``, ``kfold`` and generic ``elpd`` kinds are
-rendered; the non-factorised kind comes with its estimator.
+``waic``, ``logo``, ``lfo``, ``kfold``, generic ``elpd`` and
+non-factorised (``loo_nonfactor``) kinds are rendered.
 """
 
 from __future__ import annotations
@@ -21,6 +21,24 @@ __all__ = ["ELPDData"]
 
 STD_BASE_FMT = """
 Computed from {n_samples} posterior samples and {n_points} observations log-likelihood matrix.
+
+         Estimate       SE
+elpd_loo   {elpd:<8.2f}    {se:<.2f}
+p_loo       {p_loo:<8.2f}    {p_loo_se:<.2f}
+looic      {looic:<8.2f}    {looic_se:<.2f}"""
+
+MVN_BASE_FMT = """
+Computed from {n_samples} posterior samples and {n_points} observations log-likelihood matrix.
+Using non-factorized multivariate normal model.
+
+         Estimate       SE
+elpd_loo   {elpd:<8.2f}    {se:<.2f}
+p_loo       {p_loo:<8.2f}    {p_loo_se:<.2f}
+looic      {looic:<8.2f}    {looic_se:<.2f}"""
+
+MVT_BASE_FMT = """
+Computed from {n_samples} posterior samples and {n_points} observations log-likelihood matrix.
+Using non-factorized multivariate Student-t model.
 
          Estimate       SE
 elpd_loo   {elpd:<8.2f}    {se:<.2f}
@@ -225,8 +243,9 @@ class ELPDData:
             return self._format_kfold()
         if first != "elpd_loo":
             raise NotImplementedError(
-                "pyloo_tpu_torch renders loo, subsampled loo, waic, logo, lfo, kfold and"
-                " generic elpd results; the non-factorised kind comes with its estimator"
+                "pyloo_tpu_torch renders loo (with its mixture, approximate-posterior and"
+                " non-factorised kinds), subsampled loo, waic, logo, lfo, kfold and generic"
+                f" elpd results, not a result whose first row is {first!r}"
             )
         if "subsampling_SE" in self:
             return self._format_subsample()
@@ -374,7 +393,12 @@ class ELPDData:
                 elpd=self["elpd_loo"],
             )
         else:
-            base = STD_BASE_FMT.format(
+            attrs = self.__dict__.get("attrs") or {}
+            if attrs.get("is_mvn", False):  # loo_nonfactor
+                fmt = MVT_BASE_FMT if attrs.get("model_type") == "student_t" else MVN_BASE_FMT
+            else:
+                fmt = STD_BASE_FMT
+            base = fmt.format(
                 n_samples=self.n_samples,
                 n_points=self.n_data_points,
                 elpd=self["elpd_loo"],

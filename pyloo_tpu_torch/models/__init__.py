@@ -1,12 +1,14 @@
-"""Model bridge: pure-function models, an HMC sampler, wrappers, examples.
+"""Model bridge: pure-function models, samplers, variational fits, wrappers.
 
 Counterpart of ``pyloo_tpu/models``: models as pure torch log-density
-functions, an adaptive HMC sampler (chains as the batch axis of one state),
-the wrapper protocol that powers refit-based workflows (reloo, k-fold CV,
-moment matching) and the example models.  NUTS, ChEES, ADVI, Laplace and the
-PyMC adapter are not ported yet (ROADMAP.md, Queue 1 item 7).
+functions, adaptive HMC, multinomial NUTS and ChEES-HMC samplers (chains as
+the batch axis of one state), variational fits (Laplace, ADVI), the wrapper
+protocol that powers refit-based workflows (reloo, k-fold CV, moment
+matching) and the example models.  The PyMC adapter is not ported yet
+(ROADMAP.md, Queue 1).
 """
 
+from .advi import ADVI, ADVIResult, compute_log_weights
 from .examples import (
     eight_schools_centered,
     eight_schools_noncentered,
@@ -14,10 +16,18 @@ from .examples import (
     wells_model,
 )
 from .hmc import sample_hmc
+from .laplace import Laplace, LaplaceVIResult
+from .nuts import sample_nuts
 from .wrapper import JAXModelWrapper, Model, fit, idata_from_flat_draws
 
 __all__ = [
     "sample_hmc",
+    "sample_nuts",
+    "ADVI",
+    "ADVIResult",
+    "Laplace",
+    "LaplaceVIResult",
+    "compute_log_weights",
     "eight_schools_centered",
     "eight_schools_noncentered",
     "roaches_model",

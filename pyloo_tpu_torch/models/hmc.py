@@ -46,6 +46,14 @@ def _value_and_grad(potential: Callable) -> Callable:
     return value_and_grad
 
 
+def _host_value(x: torch.Tensor):
+    """``x.item()``: the one host read of a step of the NUTS and ChEES loops
+    (NUTS: whether any chain is still building its tree, once a doubling;
+    ChEES: the leapfrog count shared by the chains, once an iteration).
+    Every such read goes through here, so it can be counted."""
+    return x.item()
+
+
 def _leapfrog(value_and_grad, q, p, potential_q, grad_q, eps, inv_mass, n_steps):
     """``n_steps`` of leapfrog integration with a diagonal mass matrix.
 
@@ -72,6 +80,24 @@ def _step_draws(generator: torch.Generator, C: int, D: int, dtype, device) -> Ca
         return z, u[0], u[1]
 
     return draws
+
+
+def _start(init, num_chains: int, seed: int):
+    """``(generator, init_q)``: the ``torch.Generator`` on the computation
+    device, seeded, that makes every random draw of a run, and the chains'
+    starts ``(C, D)`` there: ``init`` itself when it is ``(C, D)``, else the
+    vector ``init`` plus 0.5 x standard normals per chain (the generator's
+    first draws)."""
+    device = compute_device()
+    init = torch.tensor(np.asarray(init), dtype=torch.float64, device=device)
+    generator = torch.Generator(device=device)
+    generator.manual_seed(seed)
+    if init.ndim == 1:
+        jitter = torch.randn(
+            (num_chains, init.numel()), generator=generator, dtype=init.dtype, device=device
+        ) * 0.5
+        return generator, init[None, :] + jitter
+    return generator, init
 
 
 def _run_chains(
@@ -192,18 +218,7 @@ def sample_hmc(
     Runs on ``rcParams["device.device"]``; with ``"cuda"`` and no CUDA device
     this raises.
     """
-    device = compute_device()
-    init = torch.tensor(np.asarray(init), dtype=torch.float64, device=device)
-    generator = torch.Generator(device=device)
-    generator.manual_seed(seed)
-    if init.ndim == 1:
-        jitter = torch.randn(
-            (num_chains, init.numel()), generator=generator, dtype=init.dtype, device=device
-        ) * 0.5
-        init_q = init[None, :] + jitter
-    else:
-        init_q = init
-        num_chains = init_q.shape[0]
+    generator, init_q = _start(init, num_chains, seed)
 
     def potential(q):
         return -logp_fn(q)
@@ -212,7 +227,7 @@ def sample_hmc(
     draws, accs = _run_chains(
         _value_and_grad(potential),
         init_q,
-        _step_draws(generator, C, D, init_q.dtype, device),
+        _step_draws(generator, C, D, init_q.dtype, init_q.device),
         num_warmup,
         num_samples,
         num_leapfrog,

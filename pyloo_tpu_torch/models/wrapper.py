@@ -22,7 +22,9 @@ import torch
 
 from .._common import compute_device
 from ..containers import DataArray, Dataset, InferenceData
+from .chees import sample_chees
 from .hmc import sample_hmc
+from .nuts import sample_nuts
 
 __all__ = ["Model", "fit", "idata_from_flat_draws", "JAXModelWrapper", "map_draws"]
 
@@ -31,6 +33,8 @@ __all__ = ["Model", "fit", "idata_from_flat_draws", "JAXModelWrapper", "map_draw
 # draw touches), with about _EVAL_TEMPORARIES temporaries of that size.
 _EVAL_BUDGET_BYTES = 1 << 30
 _EVAL_TEMPORARIES = 4
+
+_SAMPLERS = {"hmc": sample_hmc, "nuts": sample_nuts, "chees": sample_chees}
 
 
 def as_tensors(data: dict, device, dtype) -> dict:
@@ -165,24 +169,26 @@ def fit(
 ) -> InferenceData:
     """Sample the model's posterior and assemble results.
 
-    ``algorithm="hmc"`` (the default, and the only one ported) uses
-    static-trajectory adaptive HMC (:mod:`pyloo_tpu_torch.models.hmc`) on
-    ``rcParams["device.device"]``; ``"nuts"`` and ``"chees"`` raise
-    :class:`NotImplementedError`.  ``chains`` defaults to 4.
+    ``algorithm="hmc"`` (the default) uses static-trajectory adaptive HMC
+    (:mod:`pyloo_tpu_torch.models.hmc`); ``algorithm="nuts"`` the iterative
+    multinomial No-U-Turn sampler (:mod:`pyloo_tpu_torch.models.nuts`);
+    ``algorithm="chees"`` ChEES-adapted trajectory lengths
+    (:mod:`pyloo_tpu_torch.models.chees`), one step count shared by all
+    chains.  Each runs on ``rcParams["device.device"]``.
+
+    ``chains`` defaults per algorithm: 4 for HMC and NUTS, 16 for ChEES,
+    whose trajectory-length gradient is a cross-chain expectation and is
+    noisy at few chains.
 
     Returns an :class:`InferenceData` with ``posterior`` (constrained,
     named), ``log_likelihood`` and ``observed_data`` groups.
     """
-    if algorithm in ("nuts", "chees"):
-        raise NotImplementedError(
-            f"algorithm={algorithm!r} is not ported to pyloo_tpu_torch yet: the NUTS and"
-            " ChEES samplers come with a later slice of the port (ROADMAP.md, Queue 1"
-            " item 7); use algorithm='hmc'"
-        )
-    if algorithm != "hmc":
+    if algorithm not in _SAMPLERS:
         raise ValueError(
             f"Unknown algorithm {algorithm!r}; use 'hmc', 'nuts' or 'chees'"
         )
+    if chains is None:
+        chains = 16 if algorithm == "chees" else 4
     device = compute_device()
     data = model.tensor_data(device)
 
@@ -190,12 +196,12 @@ def fit(
         return model.logp(model.unravel(q), data)
 
     q0 = np.zeros(model.flat_dim) if init is None else init
-    draws_flat, accept = sample_hmc(
+    draws_flat, accept = _SAMPLERS[algorithm](
         logp_q,
         q0,
         num_warmup=tune,
         num_samples=draws,
-        num_chains=4 if chains is None else chains,
+        num_chains=chains,
         seed=seed,
         **hmc_kwargs,
     )  # (C, T, D)
@@ -222,9 +228,31 @@ def idata_from_flat_draws(
     """
     draws_flat = np.asarray(draws_flat, dtype=np.float64)
     C, T, D = draws_flat.shape
-    device = compute_device()
-    flat = torch.tensor(draws_flat, device=device).reshape(C * T, D)
+    flat = torch.tensor(draws_flat, device=compute_device()).reshape(C * T, D)
+    posterior, log_lik = draw_groups(model, flat, C, T, compute_log_likelihood)
+    groups = {
+        "posterior": posterior,
+        "sample_stats": Dataset(
+            {
+                "accept_rate": DataArray(np.full((C, T), accept), ("chain", "draw")),
+                # raw flat unconstrained draws: powers refit workflows
+                # (log_likelihood_i, moment matching) without inversion
+                "_flat_draws": DataArray(draws_flat, ("chain", "draw", "flat_param")),
+            }
+        ),
+        "observed_data": observed_data(model),
+    }
+    if log_lik is not None:
+        groups["log_likelihood"] = log_lik
+    return InferenceData(**groups)
 
+
+def draw_groups(model: Model, flat: torch.Tensor, C: int, T: int,
+                compute_log_likelihood: bool = True):
+    """``(posterior, log_likelihood)`` Datasets of the draws ``flat``
+    (C * T, D) on the device: the constrained values by name, and the
+    pointwise log-likelihood (``None`` unless ``compute_log_likelihood``),
+    both evaluated there."""
     upars = torch.func.vmap(model.unravel)(flat)
     constrained = (
         torch.func.vmap(model.constrain)(upars) if model.constrain is not None else upars
@@ -239,37 +267,27 @@ def idata_from_flat_draws(
             ("chain", "draw") + tuple(f"{name}_dim_{i}" for i in range(values.ndim - 2)),
             name=name,
         )
+    if not compute_log_likelihood:
+        return Dataset(posterior), None
+    ll = map_draws(model.log_lik_flat, flat, model.n_obs).cpu().numpy()
+    return Dataset(posterior), Dataset(
+        {"obs": DataArray(ll.reshape(C, T, -1), ("chain", "draw", "obs_id"), name="obs")}
+    )
 
-    groups = {
-        "posterior": Dataset(posterior),
-        "sample_stats": Dataset(
-            {
-                "accept_rate": DataArray(np.full((C, T), accept), ("chain", "draw")),
-                # raw flat unconstrained draws: powers refit workflows
-                # (log_likelihood_i, moment matching) without inversion
-                "_flat_draws": DataArray(draws_flat, ("chain", "draw", "flat_param")),
-            }
-        ),
-        "observed_data": Dataset(
-            {
-                k: DataArray(
-                    np.asarray(v),
-                    tuple(f"{k}_dim_{i}" for i in range(np.asarray(v).ndim)),
-                    name=k,
-                )
-                for k, v in model.data.items()
-                if k in model.obs_keys
-            }
-        ),
-    }
 
-    if compute_log_likelihood:
-        ll = map_draws(model.log_lik_flat, flat, model.n_obs).cpu().numpy()
-        groups["log_likelihood"] = Dataset(
-            {"obs": DataArray(ll.reshape(C, T, -1), ("chain", "draw", "obs_id"), name="obs")}
-        )
-
-    return InferenceData(**groups)
+def observed_data(model: Model) -> Dataset:
+    """The model's observation-indexed data as the ``observed_data`` group."""
+    return Dataset(
+        {
+            k: DataArray(
+                np.asarray(v),
+                tuple(f"{k}_dim_{i}" for i in range(np.asarray(v).ndim)),
+                name=k,
+            )
+            for k, v in model.data.items()
+            if k in model.obs_keys
+        }
+    )
 
 
 class JAXModelWrapper:

@@ -31,7 +31,8 @@ for name in ("base", "psis", "sis", "tis", "waic", "loo_i", "e_loo", "loo_predic
              "streaming.expectations", "streaming.group", "streaming.subsample",
              "models", "models.wrapper", "models.hmc", "models.examples",
              "models.batched_refit", "helpers", "ops.moment_match", "split_moment_match",
-             "loo_moment_match", "loo_kfold", "reloo"):
+             "loo_moment_match", "loo_kfold", "reloo", "models.nuts", "models.chees",
+             "models.advi", "models.laplace", "ops.nonfactor", "loo_nonfactor"):
     importlib.import_module("pyloo_tpu_torch." + name)
 
 # the bundled data lie inside the package
@@ -165,6 +166,27 @@ refits = {
 }
 assert pl.loo_kfold(roach_w, K=2, random_seed=0)["K"] == 2
 weights_path.update(refits)
+# the samplers, the variational fits and non-factorised LOO
+eight_nc = pl.models.eight_schools_noncentered()
+small = dict(draws=4, tune=4, chains=2, seed=0)
+cov = np.broadcast_to(np.eye(6), (2, 50, 6, 6))
+mvn = pl.from_dict(posterior={"mu": rng.normal(0, 0.1, size=(2, 50, 6)), "cov": cov,
+                              "df": np.full((2, 50), 5.0)}, observed_data={"y": y})
+fits = {
+    "fit(nuts)": lambda: pl.models.fit(eight_nc, algorithm="nuts", max_depth=3, **small),
+    "fit(chees)": lambda: pl.models.fit(eight_nc, algorithm="chees", max_leapfrog=4, **small),
+    "ADVI": lambda: pl.ADVI(eight_nc, "fullrank").fit(n=5, draws=10),
+    "Laplace": lambda: pl.Laplace(eight_nc).fit(draws=10, chains=1),
+    "loo_nonfactor": lambda: pl.loo_nonfactor(mvn, reff=1.0),
+    "loo_nonfactor(student_t)": lambda: pl.loo_nonfactor(mvn, reff=1.0, model_type="student_t"),
+}
+import warnings
+with warnings.catch_warnings():
+    warnings.simplefilter("ignore")
+    for call in fits.values():
+        call()
+    assert "multivariate normal" in str(pl.loo_nonfactor(mvn, reff=1.0))
+weights_path.update(fits)
 loaded = [m for m, mod in sys.modules.items() if mod is not None]
 assert not any(m == "pyloo_tpu" or m.startswith(("pyloo_tpu.", "jax", "pandas")) for m in loaded)
 

@@ -308,8 +308,9 @@ def test_fit_assembles_an_idata_and_refuses_the_samplers_not_ported():
     assert idata.posterior["mu"].values.shape == (2, 8)
     assert idata.log_likelihood["obs"].values.shape == (2, 8, 30)
     assert idata.sample_stats["_flat_draws"].values.shape == (2, 8, 2)
+    # NUTS and ChEES are ported (tests/test_torch_samplers.py): fit() runs them
     for algorithm in ("nuts", "chees"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            tpl.models.fit(tm, algorithm=algorithm)
+        idata = tpl.models.fit(tm, draws=4, tune=4, chains=2, seed=1, algorithm=algorithm)
+        assert idata.posterior["mu"].values.shape == (2, 4)
     with pytest.raises(ValueError, match="Unknown algorithm"):
         tpl.models.fit(tm, algorithm="mala")
