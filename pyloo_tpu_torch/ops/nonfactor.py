@@ -41,10 +41,9 @@ _CHUNK_BUDGET_BYTES = 1 << 30
 _MATRICES_PER_DRAW = 4
 
 
-def draws_per_chunk(n: int, budget: int | None = None) -> int:
+def draws_per_chunk(n: int) -> int:
     """Draws of ``n x n`` float64 matrices that one chunk holds."""
-    budget = _CHUNK_BUDGET_BYTES if budget is None else budget
-    return max(1, budget // (_MATRICES_PER_DRAW * 8 * n * n))
+    return max(1, _CHUNK_BUDGET_BYTES // (_MATRICES_PER_DRAW * 8 * n * n))
 
 
 def _as_device(x, device):
@@ -117,14 +116,14 @@ def _mvt_chunk(y, mu, df, cov=None, prec=None):
     return torch.where(invalid, -math.inf, ll)
 
 
-def _by_chunks(fn, y, mu, per_draw: tuple, matrix, chunk: int | None):
+def _by_chunks(fn, y, mu, per_draw: tuple, matrix):
     """``fn`` over chunks of draws; ``per_draw`` are further (S, ...) inputs
     and ``matrix`` the (S, N, N) one.  Returns the (S, N) result on the
     computation device."""
     device = compute_device()
     y = _as_device(y, device)
     S, N = mu.shape[0], y.shape[0]
-    chunk = draws_per_chunk(N) if chunk is None else chunk
+    chunk = draws_per_chunk(N)
     out = torch.empty((S, N), dtype=torch.float64, device=device)
     for start in range(0, S, chunk):
         sl = slice(start, min(start + chunk, S))
@@ -133,22 +132,21 @@ def _by_chunks(fn, y, mu, per_draw: tuple, matrix, chunk: int | None):
     return out
 
 
-def mvn_conditional_loglik(y, mu, cov=None, prec=None, *, chunk: int | None = None):
+def mvn_conditional_loglik(y, mu, cov=None, prec=None):
     """(S, N) conditional leave-one-out log-densities for a joint MVN.
 
     log p(y_i | y_-i, theta_s) = -0.5 log 2pi + 0.5 log Pbar_ii
     - 0.5 g_i^2 / Pbar_ii.  A covariance draw that is not positive definite
     gives a ``-inf`` row.  ``y`` is (N,), ``mu`` (S, N) and ``cov`` or
     ``prec`` (S, N, N), numpy arrays or tensors; the result is a tensor on
-    ``rcParams["device.device"]``.  ``chunk`` (draws a chunk) defaults to
-    what fits the module's device budget.
+    ``rcParams["device.device"]``.
     """
     if cov is not None:
-        return _by_chunks(lambda y, m, c: _mvn_chunk(y, m, cov=c), y, mu, (), cov, chunk)
-    return _by_chunks(lambda y, m, p: _mvn_chunk(y, m, prec=p), y, mu, (), prec, chunk)
+        return _by_chunks(lambda y, m, c: _mvn_chunk(y, m, cov=c), y, mu, (), cov)
+    return _by_chunks(lambda y, m, p: _mvn_chunk(y, m, prec=p), y, mu, (), prec)
 
 
-def mvt_conditional_loglik(y, mu, df, cov=None, prec=None, *, chunk: int | None = None):
+def mvt_conditional_loglik(y, mu, df, cov=None, prec=None):
     """(S, N) conditional LOO log-densities for a joint multivariate-t.
 
     The conditional is a Student-t with df+N-1 degrees of freedom, location
@@ -157,7 +155,5 @@ def mvt_conditional_loglik(y, mu, df, cov=None, prec=None, *, chunk: int | None 
     in :func:`mvn_conditional_loglik`.
     """
     if cov is not None:
-        return _by_chunks(lambda y, m, d, c: _mvt_chunk(y, m, d, cov=c), y, mu, (df,), cov,
-                          chunk)
-    return _by_chunks(lambda y, m, d, p: _mvt_chunk(y, m, d, prec=p), y, mu, (df,), prec,
-                      chunk)
+        return _by_chunks(lambda y, m, d, c: _mvt_chunk(y, m, d, cov=c), y, mu, (df,), cov)
+    return _by_chunks(lambda y, m, d, p: _mvt_chunk(y, m, d, prec=p), y, mu, (df,), prec)

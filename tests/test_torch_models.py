@@ -303,14 +303,22 @@ def test_wrapper_matches_pyloo_tpu():
 
 
 def test_fit_assembles_an_idata_and_refuses_the_samplers_not_ported():
+    """HMC's idata; a sampler that neither package has is refused."""
     jm, tm = MODELS["outlier"]()
     idata = tpl.models.fit(tm, draws=8, tune=8, chains=2, seed=1, num_leapfrog=2)
     assert idata.posterior["mu"].values.shape == (2, 8)
     assert idata.log_likelihood["obs"].values.shape == (2, 8, 30)
     assert idata.sample_stats["_flat_draws"].values.shape == (2, 8, 2)
-    # NUTS and ChEES are ported (tests/test_torch_samplers.py): fit() runs them
-    for algorithm in ("nuts", "chees"):
-        idata = tpl.models.fit(tm, draws=4, tune=4, chains=2, seed=1, algorithm=algorithm)
-        assert idata.posterior["mu"].values.shape == (2, 4)
     with pytest.raises(ValueError, match="Unknown algorithm"):
         tpl.models.fit(tm, algorithm="mala")
+
+
+@pytest.mark.parametrize("algorithm", ["nuts", "chees"])
+def test_fit_assembles_an_idata_for_each_algorithm(algorithm):
+    """NUTS and ChEES through ``fit()`` (their parity:
+    ``tests/test_torch_samplers.py``)."""
+    _, tm = MODELS["outlier"]()
+    idata = tpl.models.fit(tm, draws=4, tune=4, chains=2, seed=1, algorithm=algorithm)
+    assert idata.posterior["mu"].values.shape == (2, 4)
+    assert idata.log_likelihood["obs"].values.shape == (2, 4, 30)
+    assert idata.sample_stats["_flat_draws"].values.shape == (2, 4, 2)

@@ -96,20 +96,21 @@ def test_conditional_logliks_match_pyloo_tpu(draws, form):
 def test_chunked_equals_unchunked(draws, monkeypatch):
     y, mus, covs, df = draws
     mu, cov, d = _flat(mus, covs, df)
-    whole = tnf.mvn_conditional_loglik(y, mu, cov=cov, chunk=len(mu))
-    whole_t = tnf.mvt_conditional_loglik(y, mu, d, cov=cov, chunk=len(mu))
-    # a budget of seven draws' matrices: 43 chunks, the last one short
     n = mu.shape[1]
+    # the module's own budget holds every draw in one chunk
+    assert tnf.draws_per_chunk(n) >= len(mu)
+    whole = tnf.mvn_conditional_loglik(y, mu, cov=cov)
+    whole_t = tnf.mvt_conditional_loglik(y, mu, d, cov=cov)
+    idata = tpl.from_dict(posterior={"mu": mus, "cov": covs}, observed_data={"y": y})
+    single = _quiet(tpl.loo_nonfactor, idata, pointwise=True, reff=1.0)
+    # a budget of seven draws' matrices: 43 chunks, the last one short
     monkeypatch.setattr(tnf, "_CHUNK_BUDGET_BYTES", 7 * tnf._MATRICES_PER_DRAW * 8 * n * n)
     assert tnf.draws_per_chunk(n) == 7
     assert_allclose(tnf.mvn_conditional_loglik(y, mu, cov=cov).numpy(), whole.numpy(),
                     rtol=0, atol=0)
     assert_allclose(tnf.mvt_conditional_loglik(y, mu, d, cov=cov).numpy(), whole_t.numpy(),
                     rtol=0, atol=0)
-    idata = tpl.from_dict(posterior={"mu": mus, "cov": covs}, observed_data={"y": y})
     chunked = _quiet(tpl.loo_nonfactor, idata, pointwise=True, reff=1.0)
-    monkeypatch.setattr(tnf, "_CHUNK_BUDGET_BYTES", 1 << 30)
-    single = _quiet(tpl.loo_nonfactor, idata, pointwise=True, reff=1.0)
     assert chunked["elpd_loo"] == single["elpd_loo"]
     assert_allclose(chunked.loo_i.values, single.loo_i.values, rtol=0, atol=0)
 
