@@ -106,7 +106,22 @@ Phases:
    S = 4,000 (8.4 GB of float64 matrices, copied to the card a chunk at a
    time) in the ``cov``, ``student_t``, ``prec`` and diagonal forms, held to
    the CPU path on 64 draws (1e-10), ``cov`` to ``prec`` (1e-8) and the
-   diagonal form to ``loo()`` of the pointwise normal log-likelihood.
+   diagonal form to ``loo()`` of the pointwise normal log-likelihood;
+12. first use, ingestion, profiling and the PyMC bridge: (a) two fresh
+   processes (``first_use_child``), each importing the package and making
+   phase 5's model, one running phase 5's ``loo_streaming`` twice, the
+   other ``warmup(1,000,000, 4,000, dtype=torch.float32)`` and then the
+   call once (the walls; A's launches in warmup's window; warmup's chunk
+   against ``loo_streaming``'s; every result equal to phase 5's bit for
+   bit); (b) the first 3,020 observations of phase 2's matrix (wells'
+   size) as four CmdStan CSV files, read by ``from_cmdstan`` and
+   ``to_inference_data`` (parse time, MB/s), ``loo()`` in float32 and
+   float64 equal to ``loo()`` of the same matrix through ``from_dict`` bit
+   for bit; (c) phase 5's ``loo_streaming`` under ``profiling.trace`` with
+   ``annotate``, kernel A named in the trace as often as its counter reads;
+   (d) eight schools (non-centred) as a bridge of torch functions through
+   ``from_bridge`` and ``PyMCWrapper``, its log density and log-likelihood
+   over 4 x 1,000 draws on the card against the CPU within 1e-12.
 
 Every main path runs with the kernels' launch counters set to 0 just before
 it and read just after; comparisons with the plain versions run outside
@@ -525,6 +540,35 @@ def phase_variants(kernels: dict) -> None:
     print(f"  time  torch.topk ({b}, {s}) k={k}: {e['library_ms']:.3f} ms", flush=True)
 
 
+def logistic_model(n_obs: int, chains: int, draws: int, seed: int):
+    """A logistic regression with 32 features on the card, made from
+    ``seed``: ``(xw, yw, beta)``, ``beta`` (chains, draws, 32) its posterior."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    beta = 0.3 * torch.randn(chains, draws, 32, device="cuda", generator=gen)
+    xw = 0.5 * torch.randn(n_obs, 32, device="cuda", generator=gen)
+    yw = (torch.rand(n_obs, device="cuda", generator=gen) < 0.5).float()
+    return xw, yw, beta
+
+
+def logistic_chunks(model):
+    """``log_lik_fn(idx)`` of the model on the card, for ``loo_streaming``:
+    the (chunk, S) log-likelihood, sample = chain * draws + draw as
+    ``loo()`` stacks them."""
+    import torch
+
+    xw, yw, beta = model
+    beta_s = beta.reshape(beta.shape[0] * beta.shape[1], -1)
+    zero = xw.new_zeros(())
+
+    def log_lik_fn(idx):
+        eta = xw[idx] @ beta_s.T  # (chunk, S), full float32 (no TF32)
+        return yw[idx, None] * eta - torch.logaddexp(eta, zero)
+
+    return log_lik_fn
+
+
 def logistic_log_lik(n_obs: int, chains: int, draws: int, seed: int):
     """Host (chain, draw, obs) float32 log-likelihood of a logistic regression
     with 32 features, computed on the card; ``beta`` as its posterior; and
@@ -532,10 +576,7 @@ def logistic_log_lik(n_obs: int, chains: int, draws: int, seed: int):
     import numpy as np
     import torch
 
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    beta = 0.3 * torch.randn(chains, draws, 32, device="cuda", generator=gen)
-    xw = 0.5 * torch.randn(n_obs, 32, device="cuda", generator=gen)
-    yw = (torch.rand(n_obs, device="cuda", generator=gen) < 0.5).float()
+    xw, yw, beta = logistic_model(n_obs, chains, draws, seed)
     zero = xw.new_zeros(())
     ll = np.empty((chains, draws, n_obs), np.float32)
     for c in range(chains):
@@ -743,14 +784,9 @@ def phase_streaming(pl, ll_host, model, reff: float, res32, res64) -> dict:
 
     print("phase 5: loo_streaming float32 at 1,000,000 x 4,000, the model on the card",
           flush=True)
-    xw, yw, beta = model
+    xw, _, beta = model
     n_obs, s = xw.shape[0], beta.shape[0] * beta.shape[1]
-    beta_s = beta.reshape(s, -1)  # sample = chain * draws + draw, as loo() stacks them
-    zero = xw.new_zeros(())
-
-    def log_lik_fn(idx):
-        eta = xw[idx] @ beta_s.T  # (chunk, S), full float32 (no TF32)
-        return yw[idx, None] * eta - torch.logaddexp(eta, zero)
+    log_lik_fn = logistic_chunks(model)
 
     m_tail = tail_length(s, reff)
     chunk, n_chunks = resolve_chunk(None, n_obs, s, torch.float32)
@@ -823,7 +859,8 @@ def phase_streaming(pl, ll_host, model, reff: float, res32, res64) -> dict:
         f" {ll_rows_differ} rows of the made log-likelihood differ from phase 2's;"
         f" loo_i differs at all on {(e_s != e_l).sum()} rows",
     )
-    phase5 = {"elpd_loo": res["elpd_loo"], "n_chunks": n_chunks, "chunk": chunk}
+    phase5 = {"elpd_loo": res["elpd_loo"], "n_chunks": n_chunks, "chunk": chunk, "wall_s": wall,
+              "digest": result_digest(res)}
     del res
 
     print("phase 5b: loo_streaming over the first 250,000 rows of the phase-2 matrix",
@@ -857,6 +894,17 @@ def phase_streaming(pl, ll_host, model, reff: float, res32, res64) -> dict:
         del src, out
     return phase5
 
+
+
+def result_digest(res) -> str:
+    """SHA-256 of a pointwise result's loo_i and pareto_k bytes."""
+    import hashlib
+
+    import numpy as np
+
+    digest = hashlib.sha256(np.ascontiguousarray(res.loo_i.values).tobytes())
+    digest.update(np.ascontiguousarray(res.pareto_k.values).tobytes())
+    return digest.hexdigest()
 
 
 def timed_call(what: str, fn, timings: dict, main_path: bool = True):
@@ -2383,6 +2431,289 @@ def phase_nonfactor(pl, timings: dict, n: int = 512, chains: int = 4, draws: int
           f" {diag['elpd_loo']:.3f} / {plain['elpd_loo']:.3f}")
 
 
+def first_use_child(mode: str, reff: float) -> None:
+    """Phase 12a in a fresh process: import the package, ``warmup`` first
+    when ``mode`` is "warmup", make phase 5's model on the card, then run
+    phase 5's ``loo_streaming`` (twice without warmup, once after it); each
+    step timed, the kernel launches of each window counted.  Prints one
+    line, ``CHILD`` and a JSON object."""
+    t = time.perf_counter()
+    import torch
+
+    import pyloo_tpu_torch as pl
+
+    out = {"mode": mode, "import_s": time.perf_counter() - t, "calls": []}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pl.rcParams["device.device"] = "cuda"
+    n_obs, s = 1_000_000, 4_000
+    if mode == "warmup":
+        zero_counts()
+        t = time.perf_counter()
+        out["warmup"] = pl.warmup(n_obs, s, dtype=torch.float32)
+        out["warmup_s"] = time.perf_counter() - t
+        out["warmup_launches"] = read_counts()
+    t = time.perf_counter()
+    model = logistic_model(n_obs, 4, 1_000, seed=7)
+    torch.cuda.synchronize()
+    out["model_s"] = time.perf_counter() - t
+    log_lik_fn = logistic_chunks(model)
+    for _ in range(1 if mode == "warmup" else 2):
+        zero_counts()
+        t = time.perf_counter()
+        res = pl.loo_streaming(log_lik_fn, n_obs, s, reff=reff, dtype="float32", pointwise=True)
+        out["calls"].append({"wall_s": time.perf_counter() - t, "launches": read_counts(),
+                             "elpd_loo": res["elpd_loo"], "digest": result_digest(res)})
+    print("CHILD " + json.dumps(out), flush=True)
+
+
+def write_stan_csv(path: str, ll, params: dict, chain: int, seed: int) -> str:
+    """One chain's CmdStan output file: the comment header, the sampler's
+    diagnostic columns, the parameters (name -> (draws,)) and
+    ``log_lik.1`` ... ``log_lik.n`` of ``ll`` (draws, n), the adaptation
+    block, the draws in ``%.17g`` (exact for float64) and the timing footer."""
+    import numpy as np
+
+    draws, n = ll.shape
+    rng = np.random.default_rng([seed, chain])
+    diag = ["lp__", "accept_stat__", "stepsize__", "treedepth__", "n_leapfrog__",
+            "divergent__", "energy__"]
+    lp = ll.astype(np.float64).sum(axis=1)
+    stats = np.stack([lp, rng.uniform(0.6, 1.0, draws), np.full(draws, 0.31), np.full(draws, 3.0),
+                      np.full(draws, 7.0), (rng.random(draws) < 0.01).astype(float),
+                      -lp + rng.exponential(size=draws)], axis=1)
+    rows = np.concatenate([stats] + [v[:, None] for v in params.values()]
+                          + [ll.astype(np.float64)], axis=1)
+    fmt = ",".join(["%.17g"] * rows.shape[1])
+    lines = ["# stan_version_major = 2", "# stan_version_minor = 36", "# model = logistic_model",
+             "# method = sample (Default)", "#   sample", f"#     num_samples = {draws}",
+             f"#     num_warmup = {draws}", "#     save_warmup = 0 (Default)", f"# id = {chain + 1}",
+             ",".join(diag + list(params) + [f"log_lik.{i + 1}" for i in range(n)]),
+             "# Adaptation terminated", "# Step size = 0.31",
+             "# Diagonal elements of inverse mass matrix:", "# " + ", ".join(["1"] * len(params))]
+    lines += [fmt % tuple(row) for row in rows.tolist()]
+    lines += ["# ", "#  Elapsed Time: 1.2 seconds (Warm-up)", "#                1.1 seconds (Sampling)"]
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    return path
+
+
+def write_stan_csvs(directory: str, ll, params: dict, seed: int) -> list:
+    """CmdStan output files of ``ll`` (chain, draw, n) and ``params``
+    (name -> (chain, draw)), one a chain.  Returns the paths."""
+    return [write_stan_csv(os.path.join(directory, f"logistic_{c + 1}.csv"), ll[c],
+                           {k: v[c] for k, v in params.items()}, c, seed)
+            for c in range(ll.shape[0])]
+
+
+def eight_schools_bridge(device: str):
+    """Eight schools, non-centred, as PyMC's PyTorch backend would compile
+    it: value variables mu, tau_log__ (HalfCauchy(5), log transform) and
+    theta_t (8), torch functions over tensors on ``device``."""
+    import numpy as np
+    import torch
+
+    from pyloo_tpu_torch.models.pymc_adapter import PyTensorJaxBridge
+
+    y = np.array([28.0, 8.0, -3.0, 7.0, -1.0, 1.0, 18.0, 12.0])
+    sigma = np.array([15.0, 10.0, 16.0, 11.0, 9.0, 11.0, 10.0, 18.0])
+    yt, st = torch.tensor(y, device=device), torch.tensor(sigma, device=device)
+
+    def log_lik(p):
+        mean = p["mu"] + torch.exp(p["tau_log__"]) * p["theta_t"]
+        return -0.5 * math.log(2 * math.pi) - torch.log(st) - 0.5 * ((yt - mean) / st) ** 2
+
+    def logp(p):
+        tau = torch.exp(p["tau_log__"])
+        prior = (-0.5 * (p["mu"] / 5.0) ** 2 - torch.log1p((tau / 5.0) ** 2) + p["tau_log__"]
+                 - 0.5 * torch.sum(p["theta_t"] ** 2))
+        return prior + torch.sum(log_lik(p))
+
+    return PyTensorJaxBridge(
+        name="eight_schools_noncentered",
+        param_shapes={"mu": (), "tau_log__": (), "theta_t": (8,)},
+        logp=logp, log_lik=log_lik, observed={"y": y},
+        constrain=lambda p: {"mu": p["mu"], "tau": torch.exp(p["tau_log__"]),
+                             "theta_t": p["theta_t"]},
+        forward=lambda c: {"mu": c["mu"], "tau_log__": torch.log(c["tau"]),
+                           "theta_t": c["theta_t"]},
+        free_names=("mu", "tau", "theta_t"),
+    )
+
+
+def phase_first_use(pl, smi: str, model, reff: float, phase5: dict, ll_wells) -> None:
+    """Phase 12: warmup and a cold process's first call, CmdStan ingestion
+    into loo(), a trace of loo_streaming, and the PyMC bridge on the card."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pyloo_tpu_torch.models import pymc_adapter
+    from pyloo_tpu_torch.models.wrapper import map_draws
+    from pyloo_tpu_torch.profiling import Throughput, annotate, trace
+
+    print(f"phase 12: warmup, ingestion, profiling and the PyMC bridge ({smi})", flush=True)
+    pl.rcParams["device.device"] = "cuda"
+    t_phase = time.perf_counter()
+
+    # (a) two cold processes, one warmed up: their walls and results
+    torch.cuda.empty_cache()  # this process's cached blocks, for the children
+    root = os.path.dirname(os.path.abspath(__file__))
+    kids = {}
+    for mode in ("plain", "warmup"):
+        code = (f"import sys; sys.path.insert(0, {root!r}); import chip_smoke;"
+                f" chip_smoke.first_use_child({mode!r}, {float(reff)!r})")
+        t = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                              timeout=300)
+        lines = [line for line in proc.stdout.splitlines() if line.startswith("CHILD ")]
+        ok = proc.returncode == 0 and bool(lines)
+        check(ok, f"12a: the {mode} process ran (exit {proc.returncode},"
+              f" {time.perf_counter() - t:.1f} s){'' if ok else ': ' + proc.stderr[-2000:]}")
+        if not ok:
+            return
+        kids[mode] = json.loads(lines[-1][len("CHILD "):])
+        for call in kids[mode]["calls"]:
+            PATH_LAUNCHES["A"] += call["launches"]["A"]
+    plain, warm = kids["plain"], kids["warmup"]
+    PATH_LAUNCHES["A"] += warm["warmup_launches"]["A"]
+    got = warm["warmup"]
+    print(f"  time  cold process without warmup: import {plain['import_s']:.3f} s, model (and"
+          f" the CUDA context) {plain['model_s']:.3f} s, first loo_streaming"
+          f" {plain['calls'][0]['wall_s']:.3f} s, second {plain['calls'][1]['wall_s']:.3f} s"
+          f" (phase 5 in this process: {phase5['wall_s']:.3f} s)", flush=True)
+    print(f"  time  cold process with warmup: import {warm['import_s']:.3f} s, warmup"
+          f" {warm['warmup_s']:.3f} s (its wall_s {got['wall_s']:.3f}, library loaded, not built:"
+          f" {got['compilation_cache']}), model {warm['model_s']:.3f} s, first loo_streaming"
+          f" {warm['calls'][0]['wall_s']:.3f} s", flush=True)
+    check(got["chunk_size"] == phase5["chunk"] and got["dtype"] == "float32",
+          f"12a: warmup's chunk_size {got['chunk_size']} is the {phase5['chunk']} rows"
+          f" loo_streaming resolves")
+    check(warm["warmup_launches"]["A"] >= 1 and got["compilation_cache"],
+          f"12a: kernel A launched {warm['warmup_launches']['A']} time(s) in warmup's window;"
+          f" the library built by phase 0 was loaded")
+    calls = plain["calls"] + warm["calls"]
+    check(all(c["elpd_loo"] == phase5["elpd_loo"] and c["digest"] == phase5["digest"]
+              and c["launches"]["A"] == phase5["n_chunks"] for c in calls),
+          f"12a: the {len(calls)} calls of the cold processes equal phase 5 bit for bit"
+          f" (elpd_loo, loo_i, pareto_k; A {[c['launches']['A'] for c in calls]} a call)")
+
+    # (b) CmdStan CSV files of wells' size into loo()
+    tmp = tempfile.mkdtemp(prefix="pyloo_stan_")
+    try:
+        chains, draws, n = ll_wells.shape
+        rng = np.random.default_rng(12)
+        params = {"alpha": rng.normal(size=(chains, draws)),
+                  "beta": rng.normal(0.5, 0.1, size=(chains, draws))}
+        t = time.perf_counter()
+        paths = write_stan_csvs(tmp, ll_wells, params, seed=13)
+        write_s = time.perf_counter() - t
+        mb = sum(os.path.getsize(p) for p in paths) / 1e6
+        pattern = os.path.join(tmp, "logistic_*.csv")
+        t = time.perf_counter()
+        idata = pl.from_cmdstan(pattern)
+        parse_s = time.perf_counter() - t
+        t = time.perf_counter()
+        routed = pl.to_inference_data(pattern)
+        routed_s = time.perf_counter() - t
+        print(f"  time  {len(paths)} Stan CSV files, {mb:.1f} MB, written in {write_s:.3f} s;"
+              f" from_cmdstan parsed them in {parse_s:.3f} s ({mb / parse_s:.1f} MB/s),"
+              f" to_inference_data in {routed_s:.3f} s ({mb / routed_s:.1f} MB/s)", flush=True)
+        ref = pl.from_dict(posterior=params, log_likelihood={"log_lik": ll_wells.astype(np.float64)})
+        same = all(np.array_equal(d.log_likelihood["log_lik"].values,
+                                  ref.log_likelihood["log_lik"].values)
+                   and all(np.array_equal(d.posterior[k].values, params[k]) for k in params)
+                   for d in (idata, routed))
+        check(same and idata.sample_stats["diverging"].values.dtype == bool,
+              f"12b: the parsed draws {idata.log_likelihood['log_lik'].values.shape} equal the"
+              " written ones bit for bit (from_cmdstan and to_inference_data)")
+        for precision in ("float32", "float64"):
+            pl.rcParams["device.precision"] = precision
+            zero_counts()
+            t = time.perf_counter()
+            res = pl.loo(idata, pointwise=True)
+            wall = time.perf_counter() - t
+            launched = read_counts()
+            want = pl.loo(ref, pointwise=True)
+            from_routed = pl.loo(routed, pointwise=True)
+            equal = all(r["elpd_loo"] == want["elpd_loo"] and r["p_loo"] == want["p_loo"]
+                        and result_digest(r) == result_digest(want) for r in (res, from_routed))
+            a_ok = launched["A"] > 0 if precision == "float32" else launched["A"] == 0
+            check(equal and a_ok, f"12b: loo() {precision} of the CmdStan draws equals loo() of"
+                  f" the same matrix through from_dict bit for bit (elpd_loo {res['elpd_loo']:.6f},"
+                  f" {wall:.3f} s); kernel A launched {launched['A']} time(s)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    pl.rcParams["device.precision"] = "float64"
+
+    # (c) phase 5's loo_streaming under trace(), its kernels named in the file
+    log_dir = tempfile.mkdtemp(prefix="pyloo_trace_")
+    try:
+        n_obs, s = model[0].shape[0], model[2].shape[0] * model[2].shape[1]
+        meter = Throughput()
+        zero_counts()
+        t = [time.perf_counter()]
+        with trace(log_dir):
+            t.append(time.perf_counter())  # the profiler started
+            with meter.measure(n_items=n_obs), annotate("loo_streaming"):
+                res = pl.loo_streaming(logistic_chunks(model), n_obs, s, reff=reff,
+                                       dtype="float32", pointwise=True)
+                torch.cuda.synchronize()
+        t.append(time.perf_counter())  # stopped and exported
+        launched = read_counts()
+        files = os.listdir(log_dir)
+        events = []
+        if files:
+            with open(os.path.join(log_dir, files[0])) as fh:
+                events = json.load(fh)["traceEvents"]
+        named = sum(1 for e in events if e.get("name") == "loo_streaming")
+        kernel_a = sum(1 for e in events if e.get("cat") == "kernel"
+                       and "loo_prepass_kernel<true" in e.get("name", ""))
+        kernels = sum(1 for e in events if e.get("cat") == "kernel")
+        size = sum(os.path.getsize(os.path.join(log_dir, f)) for f in files) / 1e6
+        print(f"  time  traced loo_streaming {meter.summary()}, against phase 5's"
+              f" {phase5['wall_s']:.3f} s; the profiler's start {t[1] - t[0]:.3f} s, its stop and"
+              f" export {t[2] - t[1] - meter.total_seconds:.3f} s; trace {size:.1f} MB,"
+              f" {kernels} kernels on the card", flush=True)
+        check(len(files) == 1 and named >= 1 and kernel_a == launched["A"] == phase5["n_chunks"]
+              and result_digest(res) == phase5["digest"],
+              f"12c: the trace names the annotation ({named}) and kernel A {kernel_a} times,"
+              f" the launch counter {launched['A']}; the result equals phase 5 bit for bit")
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+
+    # (d) the PyMC bridge of eight schools on the card against the CPU
+    draws = np.random.default_rng(14).normal(0.0, 0.8, size=(4 * 1_000, 10))
+    out = {}
+    for device in ("cuda", "cpu"):
+        pl.rcParams["device.device"] = device
+        bridge = eight_schools_bridge(device)
+        wrapper = pl.PyMCWrapper(pymc_adapter.from_bridge(bridge))
+        q = torch.tensor(draws, device=device)
+        lp = torch.func.vmap(wrapper.model.logp_flat)(q)
+        ll = map_draws(wrapper.model.log_lik_flat, q, wrapper.n_obs)
+        devices = {lp.device.type, ll.device.type} | {
+            v.device.type for v in wrapper.model.tensor_data(device).values()}
+        posterior = {"mu": draws[:, 0].reshape(4, 1_000), "tau": np.exp(draws[:, 1]).reshape(4, 1_000),
+                     "theta_t": draws[:, 2:].reshape(4, 1_000, 8)}
+        foreign = pl.from_dict(posterior=posterior)
+        ingested = pymc_adapter.ingest_pymc_idata(bridge, wrapper.model, foreign)
+        out[device] = (lp.cpu().numpy(), ll.cpu().numpy(), devices,
+                       ingested.log_likelihood["obs"].values)
+    pl.rcParams["device.device"] = "cuda"
+    (lp_c, ll_c, dev_c, ing_c), (lp_h, ll_h, _, ing_h) = out["cuda"], out["cpu"]
+    d_lp = float(np.abs(lp_c - lp_h).max())
+    d_ll = max(float(np.abs(ll_c - ll_h).max()), float(np.abs(ing_c - ing_h).max()))
+    check(dev_c == {"cuda"} and np.allclose(lp_c, lp_h, rtol=1e-12, atol=1e-12)
+          and np.allclose(ll_c, ll_h, rtol=1e-12, atol=1e-12)
+          and np.allclose(ing_c, ing_h, rtol=1e-12, atol=1e-12),
+          f"12d: the bridge model's log density and log-likelihood over 4 x 1,000 draws on the"
+          f" card against the CPU: max |d logp| {d_lp:.3g}, max |d log_lik| {d_ll:.3g}"
+          f" (rtol/atol 1e-12); its tensors on {sorted(dev_c)}")
+    print(f"  time  phase 12 {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def phase_baseline(pl):
     print("phase 4: loo(centered_eight) against the published baseline", flush=True)
     want = {"elpd_loo": -30.7807, "se": 1.3435, "p_loo": 0.9472, "looic": 61.5613}
@@ -2402,6 +2733,7 @@ def phase_baseline(pl):
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -2437,6 +2769,12 @@ def main() -> int:
               f" scipy.optimize imported in {time.perf_counter() - t:.2f} s)", flush=True)
     except ImportError:
         print("  scipy is missing: loo_compare's SLSQP stacking cannot run", flush=True)
+    for name, user in (("h5py", "from_netcdf / save_netcdf"), ("matplotlib", "the plots")):
+        try:
+            module = __import__(name)
+            print(f"  {name} {module.__version__} ({user} import it; no phase uses it)", flush=True)
+        except ImportError:
+            print(f"  {name} is missing: {user} cannot run here (no phase uses it)", flush=True)
     t = time.perf_counter()
     _build.load()
     print(f"  build {time.perf_counter() - t:.2f} s into {_build.BUILD_DIR}", flush=True)
@@ -2490,9 +2828,11 @@ def main() -> int:
     phase_disk(pl, ll_host, model, reff, phase5, waic32, smi)
     del waic32
     phase_subsample(pl, ll_host, beta, model, reff, res32, phase5, smi)
-    del ll_host, model
+    ll_wells = np.ascontiguousarray(ll_host[:, :, :3_020])  # phase 12b's Stan CSV files
+    del ll_host
     phase_refits(pl, smi)
     phase_fits(pl, smi)
+    phase_first_use(pl, smi, model, reff, phase5, ll_wells)
 
     for key, kern in kernels.items():
         kern["launches"] = PATH_LAUNCHES[KERNEL_COUNTERS[key]]

@@ -18,8 +18,15 @@ workflows that refit or re-weight a model (``Model``, ``JAXModelWrapper``,
 ``loo(moment_match=True)`` / ``loo_moment_match``, ``loo_kfold``,
 ``reloo``), whose models are torch functions sampled by HMC, NUTS or ChEES
 on the device or fitted by ``Laplace`` and ``ADVI``
-(:mod:`pyloo_tpu_torch.models`); and LOO for non-factorised normal and
-Student-t models (``loo_nonfactor``).
+(:mod:`pyloo_tpu_torch.models`), or a live PyMC model through
+``PyMCWrapper``; LOO for non-factorised normal and Student-t models
+(``loo_nonfactor``); ingestion of netCDF files, CmdStan CSV output, NumPyro
+and cmdstanpy fits and foreign arviz-style objects (``from_netcdf``,
+``save_netcdf``, ``from_cmdstan``, ``from_cmdstanpy``, ``from_numpyro``,
+``convert_foreign``); the diagnostic plots (``plot_loo``, ``plot_khat``,
+``plot_compare``, ``plot_influence``, ``plot_loo_difference``,
+``plot_loo_pit`` and their ``*_plot`` names; matplotlib is imported when a
+plot is drawn); ``warmup`` for a cold process, and :mod:`pyloo_tpu_torch.profiling`.
 The device is ``rcParams["device.device"]`` (``"cuda"`` by default; set
 ``"cpu"`` to compute on the CPU).
 
@@ -92,7 +99,28 @@ from .loo_score import LooScoreResult, crps, loo_score, scrps
 from .loo_predictive_metric import MetricResult, loo_predictive_metric
 from .loo_subsample import loo_subsample, update_subsample
 from .loo_nonfactor import loo_nonfactor
-from .models import ADVI, JAXModelWrapper, Laplace, Model
+from .models import ADVI, JAXModelWrapper, Laplace, Model, PyMCWrapper
+from .ingest import (
+    convert_foreign,
+    from_cmdstan,
+    from_cmdstanpy,
+    from_netcdf,
+    from_numpyro,
+    save_netcdf,
+)
+from .plots import (
+    compare_plot,
+    influence_plot,
+    loo_difference_plot,
+    loo_pit_plot,
+    loo_plot,
+    plot_compare,
+    plot_khat,
+    plot_influence,
+    plot_loo,
+    plot_loo_difference,
+    plot_loo_pit,
+)
 from .psis import CompactWeights, psislw, psislw_compact
 from .rcparams import rcParams
 from .reloo import reloo
@@ -113,6 +141,7 @@ from .streaming import (
 from .tis import tislw
 from .utils import from_dict, get_log_likelihood, to_inference_data
 from .waic import waic
+from .warmup import warmup
 
 __all__ = [
     "ISMethod",
@@ -198,4 +227,23 @@ __all__ = [
     "log_prob_upars",
     "compute_updated_r_eff",
     "extract_log_likelihood_for_observation",
+    "PyMCWrapper",
+    "convert_foreign",
+    "from_cmdstan",
+    "from_cmdstanpy",
+    "from_netcdf",
+    "from_numpyro",
+    "save_netcdf",
+    "plot_loo",
+    "plot_khat",
+    "plot_compare",
+    "plot_influence",
+    "plot_loo_difference",
+    "plot_loo_pit",
+    "loo_plot",
+    "compare_plot",
+    "influence_plot",
+    "loo_difference_plot",
+    "loo_pit_plot",
+    "warmup",
 ]

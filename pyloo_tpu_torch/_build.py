@@ -21,7 +21,7 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "build", "load"]
+__all__ = ["BUILD_DIR", "build", "is_built", "load"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "pyloo_tpu_torch"
@@ -51,15 +51,29 @@ def _nvcc() -> str:
     )
 
 
+def _lib_path() -> Path:
+    """The library's path, named by a hash of the sources and the flags."""
+    digest = hashlib.sha256()
+    for name in _SOURCES:
+        digest.update((_CSRC / name).read_bytes())
+    digest.update(" ".join(_NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libpyloo_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def is_built() -> bool:
+    """True when ``load()`` would not compile: the library is loaded in this
+    process, or built for the current sources (with its log) on disk."""
+    if _lib is not None:
+        return True
+    lib_path = _lib_path()
+    return lib_path.exists() and lib_path.with_suffix(".log").exists()
+
+
 def build() -> Path:
     """Compile the kernels (once per source hash) and return the library path."""
     global build_log
     sources = [_CSRC / name for name in _SOURCES]
-    digest = hashlib.sha256()
-    for src in sources:
-        digest.update(src.read_bytes())
-    digest.update(" ".join(_NVCC_FLAGS).encode())
-    lib_path = BUILD_DIR / f"libpyloo_kernels_{digest.hexdigest()[:16]}.so"
+    lib_path = _lib_path()
     log_path = lib_path.with_suffix(".log")
     if lib_path.exists() and log_path.exists():
         build_log = log_path.read_text()

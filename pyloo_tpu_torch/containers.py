@@ -538,6 +538,14 @@ class InferenceData:
     def copy(self):
         return InferenceData(**{g: getattr(self, g).copy() for g in self._groups})
 
+    def to_netcdf(self, path):
+        """Write to a netCDF4/HDF5 file readable by arviz/xarray,
+        :func:`pyloo_tpu_torch.from_netcdf` and ``pyloo_tpu.from_netcdf``
+        (see :mod:`pyloo_tpu_torch.ingest`)."""
+        from .ingest import save_netcdf
+
+        return save_netcdf(self, path)
+
     def __repr__(self):
         lines = ["InferenceData with groups:"]
         lines += [f"\t> {g}" for g in self._groups]

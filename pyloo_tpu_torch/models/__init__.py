@@ -4,8 +4,8 @@ Counterpart of ``pyloo_tpu/models``: models as pure torch log-density
 functions, adaptive HMC, multinomial NUTS and ChEES-HMC samplers (chains as
 the batch axis of one state), variational fits (Laplace, ADVI), the wrapper
 protocol that powers refit-based workflows (reloo, k-fold CV, moment
-matching) and the example models.  The PyMC adapter is not ported yet
-(ROADMAP.md, Queue 1).
+matching), the example models, and the adapter of a live PyMC model
+(:mod:`pyloo_tpu_torch.models.pymc_adapter`).
 """
 
 from .advi import ADVI, ADVIResult, compute_log_weights
@@ -18,6 +18,7 @@ from .examples import (
 from .hmc import sample_hmc
 from .laplace import Laplace, LaplaceVIResult
 from .nuts import sample_nuts
+from .pymc_adapter import PyMCWrapper, PyTensorJaxBridge, from_pymc
 from .wrapper import JAXModelWrapper, Model, fit, idata_from_flat_draws
 
 __all__ = [
@@ -33,6 +34,9 @@ __all__ = [
     "roaches_model",
     "wells_model",
     "JAXModelWrapper",
+    "PyMCWrapper",
+    "PyTensorJaxBridge",
+    "from_pymc",
     "Model",
     "fit",
     "idata_from_flat_draws",

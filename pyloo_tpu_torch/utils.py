@@ -2,8 +2,8 @@
 
 Counterpart of ``pyloo_tpu/utils.py`` (numpy only): ``from_dict``,
 ``to_inference_data``, ``get_log_likelihood`` and the stable host
-``_logsumexp``.  The netCDF, CmdStan CSV and foreign-``InferenceData``
-ingestion of ``pyloo_tpu`` is not ported yet.
+``_logsumexp``.  ``to_inference_data`` routes file paths and foreign
+``InferenceData`` objects to :mod:`pyloo_tpu_torch.ingest`.
 """
 
 from __future__ import annotations
@@ -15,16 +15,9 @@ from typing import Any
 
 import numpy as np
 
-from .containers import _KNOWN_GROUPS, DataArray, Dataset, InferenceData
+from .containers import DataArray, Dataset, InferenceData
 
 __all__ = ["to_inference_data", "get_log_likelihood", "from_dict", "_logsumexp"]
-
-_INGEST_LATER = (
-    "is not supported by pyloo_tpu_torch yet: netCDF, CmdStan CSV and"
-    " foreign-InferenceData ingestion come with a later slice of the port"
-    " (ingest). Load the data with pyloo_tpu and pass the arrays through"
-    " pyloo_tpu_torch.convert.inference_data_from_numpy."
-)
 
 
 def from_dict(
@@ -82,10 +75,13 @@ def to_inference_data(obj: Any) -> InferenceData:
     """Convert supported objects to :class:`InferenceData`.
 
     Supported: :class:`InferenceData` (returned as-is), anything exposing a
-    ``to_inference_data()`` method that returns one, :class:`Dataset`,
+    ``to_inference_data()`` method that returns one, a netCDF file path
+    (``str`` / ``os.PathLike``), a CmdStan CSV path or glob (``*.csv``
+    routes to :func:`pyloo_tpu_torch.ingest.from_cmdstan`), a foreign
+    arviz-style InferenceData (the duck-typed group / Dataset attribute
+    protocol, e.g. the idata of ``pymc.sample``), :class:`Dataset`,
     ``dict`` of array-likes (treated as the posterior group), and bare
-    arrays of shape ``(chain, draw, ...)``.  File paths and foreign
-    ``InferenceData`` objects raise :class:`NotImplementedError`.
+    arrays of shape ``(chain, draw, ...)``.
     """
     if isinstance(obj, InferenceData):
         return obj
@@ -96,7 +92,14 @@ def to_inference_data(obj: Any) -> InferenceData:
             return converted
 
     if isinstance(obj, (str, os.PathLike)):
-        raise NotImplementedError(f"Reading {os.fspath(obj)!r} {_INGEST_LATER}")
+        text = os.fspath(obj)
+        if text.endswith(".csv") or (any(ch in text for ch in "*?[") and ".csv" in text):
+            from .ingest import from_cmdstan
+
+            return from_cmdstan(obj)
+        from .ingest import from_netcdf
+
+        return from_netcdf(obj)
 
     if isinstance(obj, (list, tuple)):
         raise ValueError(
@@ -106,8 +109,10 @@ def to_inference_data(obj: Any) -> InferenceData:
     if isinstance(obj, Dataset):
         return InferenceData(posterior=obj)
 
-    if any(hasattr(getattr(obj, g, None), "data_vars") for g in _KNOWN_GROUPS):
-        raise NotImplementedError(f"Converting a {type(obj).__name__} {_INGEST_LATER}")
+    from .ingest import convert_foreign, looks_like_foreign_idata
+
+    if looks_like_foreign_idata(obj):
+        return convert_foreign(obj)
 
     if isinstance(obj, dict):
         if not all(

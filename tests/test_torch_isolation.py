@@ -247,3 +247,141 @@ def test_chip_smoke_refuses_without_a_card():
     )
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+_SLICE10 = r"""
+import sys
+for name in ("jax", "pandas", "numpyro", "h5py", "matplotlib", "pyloo_tpu", "pymc", "pytensor"):
+    sys.modules[name] = None
+sys.path.insert(0, {repo!r})
+import importlib
+import pathlib
+import tempfile
+import types
+import warnings
+import numpy as np
+import torch
+import pyloo_tpu_torch as pl
+for name in ("ingest", "warmup", "profiling", "plots", "plots.plot_utils", "plots.loo_plot",
+             "plots.compare_plot", "plots.influence_plot", "plots.loo_difference_plot",
+             "plots.loo_pit_plot", "plots.backends", "models.pymc_adapter", "wrapper",
+             "wrapper.pymc"):
+    importlib.import_module("pyloo_tpu_torch." + name)
+pl.rcParams["device.device"] = "cpu"
+tmp = pathlib.Path(tempfile.mkdtemp())
+csv = tmp / "out_1.csv"
+rows = np.random.default_rng(0).normal(-1.0, 0.3, size=(50, 5))
+csv.write_text("# num_samples = 50\nlp__,mu,log_lik.1,log_lik.2,log_lik.3\n"
+               + "\n".join(",".join(f"{v:.17g}" for v in r) for r in rows) + "\n")
+idata = pl.to_inference_data(str(tmp / "out_*.csv"))
+assert idata.log_likelihood["log_lik"].shape == (1, 50, 3)
+with warnings.catch_warnings():
+    warnings.simplefilter("ignore")
+    assert np.isfinite(pl.loo(idata)["elpd_loo"])
+mcmc = types.SimpleNamespace(get_samples=lambda group_by_chain: {"mu": rows[:, :2].T})
+with warnings.catch_warnings(record=True) as caught:
+    warnings.simplefilter("always")
+    assert "log_likelihood" not in pl.from_numpyro(mcmc).groups()
+assert "numpyro is not importable" in str(caught[0].message)
+class ForeignDataset(dict):  # the xarray protocol: data_vars, [name].dims / .values
+    data_vars = property(lambda self: dict(self))
+foreign = types.SimpleNamespace(log_likelihood=ForeignDataset(
+    y=types.SimpleNamespace(dims=("chain", "draw", "y_dim_0"), values=rows.reshape(2, 25, 5))))
+assert pl.to_inference_data(foreign).log_likelihood["y"].shape == (2, 25, 5)
+for call in (lambda: pl.from_netcdf(csv), lambda: pl.save_netcdf(idata, tmp / "x.nc"),
+             lambda: pl.plot_loo(pl.loo(idata, pointwise=True))):
+    try:
+        call()
+    except ImportError:
+        pass
+    else:
+        raise AssertionError("an optional dependency was found although it is blocked")
+res = pl.warmup(64, 20, chunk_size=32, dtype="float64")
+assert res["chunk_size"] == 32 and res["compilation_cache"] is False
+from pyloo_tpu_torch import profiling
+with profiling.trace(str(tmp / "trace")):
+    with profiling.annotate("region"):
+        pl.loo_streaming(lambda idx: torch.zeros(len(idx), 20, dtype=torch.float64) - idx[:, None] * 1e-3
+                         - torch.arange(20.0, dtype=torch.float64) * 1e-4, 64, 20)
+assert len(list((tmp / "trace").iterdir())) == 1
+from pyloo_tpu_torch.models import pymc_adapter
+try:
+    pl.PyMCWrapper(type("M", (), {"__module__": "pymc.model", "basic_RVs": (), "value_vars": ()})())
+except ImportError as err:
+    assert "requires pymc" in str(err)
+else:
+    raise AssertionError("from_pymc ran without pymc")
+y = np.arange(5.0)
+bridge = pymc_adapter.PyTensorJaxBridge(
+    name="b", param_shapes={"mu": ()},
+    logp=lambda p: -0.5 * p["mu"] ** 2 + torch.sum(-0.5 * (torch.as_tensor(y) - p["mu"]) ** 2),
+    log_lik=lambda p: -0.5 * (torch.as_tensor(y) - p["mu"]) ** 2,
+    observed={"y": y}, forward=lambda c: {"mu": c["mu"]})
+wrapper = pl.PyMCWrapper(pymc_adapter.from_bridge(bridge))
+assert wrapper.n_obs == 5
+flat = pymc_adapter.unconstrain_posterior(bridge, {"mu": np.zeros((2, 3))})
+assert flat.shape == (2, 3, 1)
+loaded = [m for m, mod in sys.modules.items() if mod is not None]
+banned = ("jax", "pandas", "numpyro", "h5py", "matplotlib", "pyloo_tpu.", "pymc", "pytensor")
+assert not any(m == "pyloo_tpu" or m.startswith(banned) for m in loaded), [
+    m for m in loaded if m.startswith(banned)]
+if not torch.cuda.is_available():
+    pl.rcParams["device.device"] = "cuda"
+    for name, call in {
+        "warmup": lambda: pl.warmup(64, 20),
+        "trace": lambda: profiling.trace(str(tmp)).__enter__(),
+        "unconstrain_posterior": lambda: pymc_adapter.unconstrain_posterior(
+            bridge, {"mu": np.zeros((2, 3))}),
+        "loo(cmdstan)": lambda: pl.loo(str(csv)),
+    }.items():
+        try:
+            call()
+        except RuntimeError as err:
+            assert "no CUDA device" in str(err), (name, err)
+        else:
+            raise AssertionError(name + " fell back to the CPU")
+print("slice 10 isolated ok")
+"""
+
+
+def test_ingestion_plots_warmup_and_bridge_run_with_optional_packages_blocked():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", _SLICE10.replace("{repo!r}", repr(str(REPO)))],
+        capture_output=True,
+        text=True,
+        timeout=300,
+        env=env,
+        cwd=REPO.parent,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "slice 10 isolated ok" in proc.stdout
+
+
+def test_every_public_name_of_pyloo_tpu_is_in_the_port():
+    import pyloo_tpu
+    import pyloo_tpu_torch
+
+    assert set(pyloo_tpu.__all__) <= set(pyloo_tpu_torch.__all__)
+    assert len(set(pyloo_tpu_torch.__all__)) == len(pyloo_tpu_torch.__all__)
+    assert all(hasattr(pyloo_tpu_torch, name) for name in pyloo_tpu_torch.__all__)
+
+
+def test_no_module_imports_pandas_numpyro_or_an_optional_package_at_load():
+    """pandas and numpyro are never imported at module level (``to_pandas``
+    imports pandas when called), nor h5py; matplotlib only in the plot
+    backends, which load when a plot is drawn.  chip_smoke.py imports none of
+    them, nor JAX or pyloo_tpu."""
+    import re
+
+    top = re.compile(r"^(import|from)\s+(pandas|numpyro|h5py|matplotlib|pymc|pytensor)\b",
+                     re.MULTILINE)
+    backends = REPO / "pyloo_tpu_torch" / "plots" / "backends"
+    offenders = [
+        str(path.relative_to(REPO))
+        for path in (REPO / "pyloo_tpu_torch").rglob("*.py")
+        if top.search(path.read_text()) and backends not in path.parents
+    ]
+    assert offenders == []
+    anywhere = re.compile(r"^\s*(import|from)\s+(jax|pandas|numpyro|pyloo_tpu)\b", re.MULTILINE)
+    assert not anywhere.search((REPO / "chip_smoke.py").read_text())

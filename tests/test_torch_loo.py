@@ -293,8 +293,10 @@ def test_unported_options_raise(precision):
         tpl.loo(tid, pointwise=True, moment_match=True)
     with pytest.raises(ValueError, match="Invalid method"):
         tpl.loo(tid, method="bogus")
-    with pytest.raises(NotImplementedError):
-        tpl.loo("posterior.nc")
+    # a path that names no .csv is read as netCDF, as in pyloo_tpu
+    for pkg in (jpl, tpl):
+        with pytest.raises(FileNotFoundError, match="posterior.nc"):
+            pkg.loo("posterior.nc")
 
 
 def test_result_container_behaves_like_a_series(precision):

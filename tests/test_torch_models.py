@@ -302,7 +302,7 @@ def test_wrapper_matches_pyloo_tpu():
         tpl.JAXModelWrapper(jm)
 
 
-def test_fit_assembles_an_idata_and_refuses_the_samplers_not_ported():
+def test_fit_assembles_an_idata_and_refuses_an_unknown_algorithm():
     """HMC's idata; a sampler that neither package has is refused."""
     jm, tm = MODELS["outlier"]()
     idata = tpl.models.fit(tm, draws=8, tune=8, chains=2, seed=1, num_leapfrog=2)
