@@ -121,7 +121,19 @@ Phases:
    ``annotate``, kernel A named in the trace as often as its counter reads;
    (d) eight schools (non-centred) as a bridge of torch functions through
    ``from_bridge`` and ``PyMCWrapper``, its log density and log-likelihood
-   over 4 x 1,000 draws on the card against the CPU within 1e-12.
+   over 4 x 1,000 draws on the card against the CPU within 1e-12; a float64
+   ``warmup`` loads no kernel library and launches nothing;
+13. the multi-device layer over ``smoke_mesh()`` (every card with two or
+   more, else four shards of ``cuda:0``): the cards' names and power
+   limits; with two cards, kernels A and B launched on ``cuda:1`` leave
+   ``cuda:0`` current; phase 5's ``loo_streaming`` with the model copied to
+   each card, per row equal to the call with no mesh bit for bit, kernel A
+   once a shard and chunk (counted a card), and its transfer census (no
+   copy between cards larger than a scalar); ``loo()`` in float32 and
+   float64 on phase 6's 262,144-row cut, per row equal to one device; each
+   wall beside the wall with no mesh.  Phase 10a's batched moment matching
+   (within 1e-10) and phase 11d's ``cov`` form (bit for bit) run once more
+   over the same mesh.
 
 Every main path runs with the kernels' launch counters set to 0 just before
 it and read just after; comparisons with the plain versions run outside
@@ -133,6 +145,7 @@ fails.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -905,6 +918,30 @@ def result_digest(res) -> str:
     digest = hashlib.sha256(np.ascontiguousarray(res.loo_i.values).tobytes())
     digest.update(np.ascontiguousarray(res.pareto_k.values).tobytes())
     return digest.hexdigest()
+
+
+def smoke_mesh():
+    """The mesh of the sharded checks: ``obs_mesh()`` (every card) with two
+    cards or more, else four shards of ``cuda:0``, which run the split, each
+    shard's launches and the merge on one card."""
+    from pyloo_tpu_torch.parallel import Mesh, obs_mesh
+
+    mesh = obs_mesh()
+    return mesh if mesh is not None else Mesh(["cuda:0"] * 4)
+
+
+@contextlib.contextmanager
+def default_mesh_of(mesh):
+    """``obs_mesh()``, the default mesh of ``loo()``, ``loo_nonfactor`` and
+    moment matching, made to see ``mesh``'s devices for the block."""
+    from pyloo_tpu_torch.parallel import sharding
+
+    real = sharding._visible_devices
+    sharding._visible_devices = lambda: list(mesh.devices)
+    try:
+        yield
+    finally:
+        sharding._visible_devices = real
 
 
 def timed_call(what: str, fn, timings: dict, main_path: bool = True):
@@ -2004,6 +2041,21 @@ def phase_refits(pl, smi: str) -> None:
                   f" {left[0]} (host loop {left[1]}); elpd_loo {mm[True]['elpd_loo']:.4f} (host"
                   f" loop {mm[False]['elpd_loo']:.4f}); {mm[True].moment_match_passes} batched"
                   f" passes")
+            # the batched call once more with its lanes split over the mesh
+            mesh = smoke_mesh()
+            what = f"loo(moment_match=True, split=True, device_batched=True) over {mesh}"
+            with default_mesh_of(mesh):
+                meshed = timed_call(what, lambda: pl.loo(
+                    idata, pointwise=True, moment_match=True, wrapper=wrapper, split=True,
+                    device_batched=True), timings)
+            d_loo = float(np.abs(meshed.loo_i.values - mm[True].loo_i.values).max())
+            d_k = float(np.abs(meshed.pareto_k.values - mm[True].pareto_k.values).max())
+            check(d_loo <= 1e-10 and d_k <= 1e-10,
+                  f"10a (phase 13's mesh): the batched moment matching with its lanes split"
+                  f" over {mesh.size} shards against one device, max |d loo_i| {d_loo:.3g},"
+                  f" max |d k| {d_k:.3g} (1e-10); {meshed.moment_match_passes} passes"
+                  f" ({timings[what]['wall_s']:.3f} s against"
+                  f" {timings['loo(moment_match=True, split=True, device_batched=True)']['wall_s']:.3f} s)")
 
             # (b) many bad observations at once: the greedy loops alone
             # (split=False: the split step is a host loop over the observations
@@ -2344,6 +2396,18 @@ def phase_nonfactor(pl, timings: dict, n: int = 512, chains: int = 4, draws: int
         what = f"loo_nonfactor({form}, N = {n}, S = {S})"
         res[form] = timed_call(what, lambda: pl.loo_nonfactor(idata, pointwise=True, reff=1.0,
                                                               **kw), timings)
+        if form == "cov":  # once more with its chunks of draws dealt over the mesh
+            mesh = smoke_mesh()
+            what_m = f"{what} over {mesh}"
+            with default_mesh_of(mesh):
+                meshed = timed_call(what_m, lambda: pl.loo_nonfactor(
+                    idata, pointwise=True, reff=1.0, **kw), timings)
+            check(meshed["elpd_loo"] == res[form]["elpd_loo"]
+                  and result_digest(meshed) == result_digest(res[form]),
+                  f"11d (phase 13's mesh): loo_nonfactor(cov) with its chunks of draws dealt"
+                  f" over {mesh.size} shards equals one device bit for bit (elpd_loo, loo_i,"
+                  f" pareto_k; {timings[what_m]['wall_s']:.3f} s against"
+                  f" {timings[what]['wall_s']:.3f} s)")
         # the card against the port's CPU path on the first 64 draws: the
         # estimates within 1e-10; k in two parts, the conditional
         # log-likelihoods within 1e-10 and PSIS on the card against PSIS on
@@ -2598,6 +2662,21 @@ def phase_first_use(pl, smi: str, model, reff: float, phase5: dict, ll_wells) ->
               and c["launches"]["A"] == phase5["n_chunks"] for c in calls),
           f"12a: the {len(calls)} calls of the cold processes equal phase 5 bit for bit"
           f" (elpd_loo, loo_i, pareto_k; A {[c['launches']['A'] for c in calls]} a call)")
+    # a float64 warmup uses no kernel of the library: it loads and launches nothing
+    from pyloo_tpu_torch import _build
+
+    real_load, loads = _build.load, []
+    _build.load = lambda *a, **k: loads.append(1) or real_load(*a, **k)
+    try:
+        zero_counts()
+        got64 = pl.warmup(1_000_000, 4_000, dtype=torch.float64)
+        launched = read_counts()
+    finally:
+        _build.load = real_load
+    check(not loads and not any(launched.values()) and got64["compilation_cache"] is False,
+          f"12a: a float64 warmup loaded the kernel library {len(loads)} times and launched"
+          f" {sum(launched.values())} kernels (0 and 0); {got64['wall_s']:.3f} s, chunk"
+          f" {got64['chunk_size']}")
 
     # (b) CmdStan CSV files of wells' size into loo()
     tmp = tempfile.mkdtemp(prefix="pyloo_stan_")
@@ -2712,6 +2791,202 @@ def phase_first_use(pl, smi: str, model, reff: float, phase5: dict, ll_wells) ->
           f" card against the CPU: max |d logp| {d_lp:.3g}, max |d log_lik| {d_ll:.3g}"
           f" (rtol/atol 1e-12); its tensors on {sorted(dev_c)}")
     print(f"  time  phase 12 {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def phase_mesh(pl, smi: str, model, reff: float, phase5: dict, ll_cut) -> None:
+    """Phase 13: the multi-device layer.  Over ``smoke_mesh()``: the
+    launchers keep the caller's current device (two cards or more); phase
+    5's ``loo_streaming`` with the model copied to each card of the mesh,
+    per row equal to the same call with no mesh, kernel A launched once a
+    shard and chunk, and a transfer census of the call (no copy between
+    cards larger than a scalar); ``loo()`` in float32 and float64 on phase
+    6's 262,144-row cut, per row equal to one device.  Each call's wall
+    beside its wall with no mesh."""
+    import numpy as np
+    import torch
+
+    from pyloo_tpu_torch.ops import topk
+    from pyloo_tpu_torch.parallel import Mesh, witness
+    from pyloo_tpu_torch.streaming._chunks import resolve_chunk
+
+    n_cards = torch.cuda.device_count()
+    cards = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()
+    print(f"phase 13: the multi-device layer, {n_cards} card(s) ({smi})", flush=True)
+    print(f"  cards {n_cards}: " + "; ".join(f"cuda:{i} {c}" for i, c in enumerate(cards)),
+          flush=True)
+    mesh = smoke_mesh()
+    used = sorted({str(d) for d in mesh.devices})
+    print(f"  mesh {mesh}: {mesh.size} shards on {len(used)} card(s)"
+          + ("" if len(used) > 1 else "; on one card the walls below are the split's cost,"
+             " not a speed-up, and no speed-up is claimed"), flush=True)
+    pl.rcParams["device.device"] = "cuda"
+    t_phase = time.perf_counter()
+
+    # (a) a launch on another card than the current one leaves the current one
+    if n_cards >= 2:
+        torch.cuda.set_device(0)
+        x = torch.randn(1024, 4000, device="cuda:1") * 0.8 + 1.0
+        before = torch.cuda.current_device()
+        vals = topk.loo_prepass(x, 200)[0]
+        top = topk.topk_desc(x, 200)
+        after = torch.cuda.current_device()
+        torch.cuda.synchronize(1)
+        same = (torch.equal(vals, topk.loo_prepass_plain(x, 200)[0])
+                and torch.equal(top, topk.topk_desc_plain(x, 200)))
+        check(before == after == 0 and vals.device == x.device and same,
+              f"13a: kernels A and B on cuda:1 with cuda:0 current: current device {before}"
+              f" before, {after} after; their values equal the plain versions' on cuda:1")
+        del x, vals, top
+
+    # (b) phase 5's loo_streaming over the mesh, the model on each card
+    n_obs, s = model[0].shape[0], model[2].shape[0] * model[2].shape[1]
+    copies = {d: tuple(t.to(d) for t in model) for d in set(mesh.devices)}
+    fns = {d: logistic_chunks(copies[d]) for d in copies}
+
+    def log_lik_fn(idx):  # the generator contract over a mesh: rows on idx.device
+        return fns[idx.device](idx)
+
+    chunk, n_chunks = resolve_chunk(None, n_obs, s, torch.float32, mesh=mesh)
+    kw = dict(reff=reff, dtype="float32", pointwise=True)
+
+    def sync_all():
+        for index in range(n_cards):
+            torch.cuda.synchronize(index)
+
+    def turns(fn_none, fn_mesh):
+        """no mesh, mesh, mesh, no mesh, each a launch window of its own,
+        after the untimed call over the mesh that ran before: the walls and
+        the first call of each with its launches (all, and a card)."""
+        got, walls = {}, {"no mesh": [], "mesh": []}
+        for what in ("no mesh", "mesh", "mesh", "no mesh"):
+            sync_all()
+            zero_counts()
+            t = time.perf_counter()
+            out, per_device = witness.launch_census(fn_mesh if what == "mesh" else fn_none)
+            sync_all()
+            walls[what].append(time.perf_counter() - t)
+            launched = read_counts()
+            got.setdefault(what, (out, per_device, launched))
+        return got, walls
+
+    # the census run comes first: it is also the first use of every card
+    with warnings_quiet():
+        (_, census) = witness.transfer_census(
+            lambda: pl.loo_streaming(log_lik_fn, n_obs, s, mesh=mesh, **kw))
+    got, walls = turns(lambda: pl.loo_streaming(log_lik_fn, n_obs, s, **kw),
+                       lambda: pl.loo_streaming(log_lik_fn, n_obs, s, mesh=mesh, **kw))
+    none, res = got["no mesh"][0], got["mesh"][0]
+    _, per_device, launched = got["mesh"]
+    shards_on = {d: sum(1 for e in mesh.devices if str(e) == d) for d in used}
+    per_shard = {d: per_device.get(d, 0) / shards_on[d] for d in used}
+    differ = int(np.sum((res.loo_i.values != none.loo_i.values)
+                        | (res.pareto_k.values != none.pareto_k.values)))
+    check(differ == 0 and result_digest(none) == phase5["digest"],
+          f"13b: loo_streaming over the mesh equals the call with no mesh per row bit for bit"
+          f" ({differ} rows differ; the call with no mesh equals phase 5:"
+          f" {result_digest(none) == phase5['digest']}); elpd_loo {res['elpd_loo']!r} against"
+          f" {none['elpd_loo']!r} (the carries summed shard by shard)")
+    check(all(n == n_chunks for n in per_shard.values()) and launched["A"] == n_chunks * mesh.size
+          and launched["B"] == 0,
+          f"13b: kernel A launched once a shard and chunk: {per_device} on the cards, that is"
+          f" {per_shard} a shard for {n_chunks} chunks of {chunk} rows ({chunk // mesh.size}"
+          f" a shard); A {launched['A']} in all, B {launched['B']}")
+    best = {what: min(v) for what, v in walls.items()}
+    print(f"  time  loo_streaming at {n_obs} x {s} float32 (no mesh, mesh, mesh, no mesh):"
+          f" over the mesh {', '.join(f'{w:.3f}' for w in walls['mesh'])} s, with no mesh"
+          f" {', '.join(f'{w:.3f}' for w in walls['no mesh'])} s ({n_obs / best['mesh']:.0f}"
+          f" against {n_obs / best['no mesh']:.0f} obs/s at the best)", flush=True)
+    summary = ", ".join(f"{kind} {len(v)} ({sum(v)} bytes, largest {max(v, default=0)})"
+                        for kind, v in census.items())
+    try:
+        witness.assert_scalar_only_transfers(census)
+        scalar_only = True
+    except AssertionError as err:
+        scalar_only = False
+        summary += f"; {err}"
+    check(scalar_only and len(census["device_to_host"]) > 0,
+          f"13b: the transfer census of the call: {summary}; no copy between cards larger"
+          f" than {witness.SCALAR_BYTES} bytes")
+    del res, none, got, copies, fns
+
+    # (c) loo() on phase 6's 262,144-row cut, float32 and float64
+    idata = pl.from_dict(posterior={"beta": model[2].cpu().numpy()},
+                         log_likelihood={"y": ll_cut})
+
+    def loo_over(one_mesh):
+        with default_mesh_of(one_mesh):
+            return pl.loo(idata, pointwise=True)
+
+    for precision in ("float32", "float64"):
+        pl.rcParams["device.precision"] = precision
+        loo_over(mesh)  # untimed: this path's first use of every card
+        got, walls = turns(lambda: loo_over(Mesh(["cuda:0"])), lambda: loo_over(mesh))
+        a, b = got["mesh"][0], got["no mesh"][0]
+        _, per_device, launches = got["mesh"]
+        differ = int(np.sum((a.loo_i.values != b.loo_i.values)
+                            | (a.pareto_k.values != b.pareto_k.values)))
+        want_a = 0 if precision == "float64" else mesh.size
+        check(differ == 0 and a["elpd_loo"] == b["elpd_loo"] and launches["A"] == want_a,
+              f"13c: loo() {precision} on {ll_cut.shape[2]} rows over the mesh equals one device"
+              f" per row bit for bit ({differ} rows differ, max |d loo_i|"
+              f" {np.abs(a.loo_i.values - b.loo_i.values).max():.3g}); kernel A"
+              f" {launches['A']} ({want_a}: {per_device} on the cards); over the mesh"
+              f" {', '.join(f'{w:.3f}' for w in walls['mesh'])} s, with no mesh"
+              f" {', '.join(f'{w:.3f}' for w in walls['no mesh'])} s")
+    pl.rcParams["device.precision"] = "float64"
+    print(f"  time  phase 13 {time.perf_counter() - t_phase:.1f} s ({len(used)} card(s) used)",
+          flush=True)
+
+
+def phase_mesh_alone() -> int:
+    """Phase 13 alone, with the set-up it takes from phases 0, 5 and 6;
+    returns the failures' count.  On a
+    machine with a card, from the root of the repository::
+
+        python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.phase_mesh_alone())"
+    """
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import pyloo_tpu_torch as pl
+    from pyloo_tpu_torch import _build
+    from pyloo_tpu_torch._common import compute_reff
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    _build.load()
+    pl.rcParams["device.device"] = "cuda"
+    model = logistic_model(1_000_000, 4, 1_000, seed=7)
+    xw, yw, beta = model
+    s = beta.shape[0] * beta.shape[1]
+    reff = compute_reff(pl.from_dict(posterior={"beta": beta.cpu().numpy()}), None, s)
+    res = pl.loo_streaming(logistic_chunks(model), xw.shape[0], s, reff=reff, dtype="float32",
+                           pointwise=True)
+    phase5 = {"digest": result_digest(res), "elpd_loo": res["elpd_loo"]}
+    zero = xw.new_zeros(())
+    ll_cut = np.empty((beta.shape[0], beta.shape[1], 262_144), np.float32)
+    for c in range(beta.shape[0]):  # the rows logistic_log_lik makes, phase 6's cut
+        eta = beta[c] @ xw[:262_144].T
+        torch.from_numpy(ll_cut[c]).copy_(yw[:262_144] * eta - torch.logaddexp(eta, zero))
+        del eta
+    phase_mesh(pl, smi, model, reff, phase5, ll_cut)
+    print(f"chip_smoke: {len(_FAILURES)} check(s) failed", flush=True)
+    return len(_FAILURES)
+
+
+@contextlib.contextmanager
+def warnings_quiet():
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        yield
 
 
 def phase_baseline(pl):
@@ -2829,10 +3104,12 @@ def main() -> int:
     del waic32
     phase_subsample(pl, ll_host, beta, model, reff, res32, phase5, smi)
     ll_wells = np.ascontiguousarray(ll_host[:, :, :3_020])  # phase 12b's Stan CSV files
+    ll_cut = np.ascontiguousarray(ll_host[:, :, :262_144])  # phase 13's loo() rows
     del ll_host
     phase_refits(pl, smi)
     phase_fits(pl, smi)
     phase_first_use(pl, smi, model, reff, phase5, ll_wells)
+    phase_mesh(pl, smi, model, reff, phase5, ll_cut)
 
     for key, kern in kernels.items():
         kern["launches"] = PATH_LAUNCHES[KERNEL_COUNTERS[key]]
@@ -2849,7 +3126,7 @@ def main() -> int:
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
-                                             "count": 1}}))  # the cards this run used
+                                             "count": torch.cuda.device_count()}}))
     return 0
 
 

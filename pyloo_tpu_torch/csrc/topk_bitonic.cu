@@ -282,13 +282,33 @@ KernelFn kernel_for(bool vec) {
   return vec ? topk_bitonic_kernel<kNatural, true> : topk_bitonic_kernel<kNatural, false>;
 }
 
+// Makes a device current for the scope of a launch and gives the caller's
+// current device back on every return path: a launch on one card of several
+// must not move the process's later allocations to that card.
+class DeviceScope {
+ public:
+  explicit DeviceScope(int device) {
+    err_ = cudaGetDevice(&previous_);
+    if (err_ == cudaSuccess && previous_ != device) err_ = cudaSetDevice(device);
+  }
+  ~DeviceScope() {
+    if (err_ == cudaSuccess) cudaSetDevice(previous_);
+  }
+  cudaError_t error() const { return err_; }
+
+ private:
+  int previous_ = 0;
+  cudaError_t err_;
+};
+
 template <bool kNatural>
 int launch(int device, const void* x, int B, int S, int ld, int k, void* vals,
            void* stream) {
   if (B < 1 || S < 1 || S > kMaxS || ld < S || k < 1 || k > kMaxK || k > S) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceScope scope(device);
+  cudaError_t err = scope.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 && ld % 4 == 0;
   const KernelFn kern = kernel_for<kNatural>(vec);
@@ -325,7 +345,8 @@ int pyloo_topk_natural_f32(int device, const void* x, int B, int S, int ld, int 
 // Resident blocks (of 4 warps) a SM of kernel C or D (natural != 0) in its
 // instantiation with 16-byte loads, or a negative cudaError.
 int pyloo_bitonic_blocks_per_sm(int device, int natural) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceScope scope(device);
+  cudaError_t err = scope.error();
   if (err != cudaSuccess) return -static_cast<int>(err);
   int n = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(

@@ -554,6 +554,25 @@ size_t smem_bytes(int P) {
   return sizeof(uint32_t) * kWarps * static_cast<size_t>(cand_cap(P) + kBins2 / 2 + P);
 }
 
+// Makes a device current for the scope of a launch and gives the caller's
+// current device back on every return path: a launch on one card of several
+// must not move the process's later allocations to that card.
+class DeviceScope {
+ public:
+  explicit DeviceScope(int device) {
+    err_ = cudaGetDevice(&previous_);
+    if (err_ == cudaSuccess && previous_ != device) err_ = cudaSetDevice(device);
+  }
+  ~DeviceScope() {
+    if (err_ == cudaSuccess) cudaSetDevice(previous_);
+  }
+  cudaError_t error() const { return err_; }
+
+ private:
+  int previous_ = 0;
+  cudaError_t err_;
+};
+
 // Resident blocks a SM for this shape (after raising the shared-memory cap).
 cudaError_t blocks_per_sm(KernelFn kern, size_t smem, int* n) {
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -568,7 +587,8 @@ int launch(int device, const void* x, int B, int S, int ld, int k, void* vals, v
   if (B < 1 || S < 1 || S > kMaxS || ld < S || k < 1 || k > kMaxK || k > S) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceScope scope(device);
+  cudaError_t err = scope.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int P = sort_slots(k);
   const KernelFn kern = kernel_for<kFused>(P);
@@ -614,7 +634,8 @@ int pyloo_prepass_blocks_per_sm(int device, int fused, int S, int k) {
   if (S < 1 || S > kMaxS || k < 1 || k > kMaxK || k > S) {
     return -static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceScope scope(device);
+  cudaError_t err = scope.error();
   if (err != cudaSuccess) return -static_cast<int>(err);
   const int P = sort_slots(k);
   int n = 0;

@@ -271,7 +271,9 @@ def loo_from_file(path: str, *, depth: int = 4, native: bool | None = None, **kw
     the same rows, with host and device memory O(chunk): the file is
     streamed through :func:`pyloo_tpu_torch.loo_streaming`, whose keyword
     arguments (``reff``, ``pointwise``, ``method``, ``chunk_size``,
-    ``dtype``, ``checkpoint_path``, ...) pass through.
+    ``dtype``, ``mesh``, ``checkpoint_path``, ...) pass through; over a
+    ``mesh`` each chunk's shards are copied from the staging buffer to
+    their devices.
 
     The file's chain structure is flattened, so ``reff`` defaults to 1.0:
     pass the relative efficiency from your sampler to match ``loo()`` on

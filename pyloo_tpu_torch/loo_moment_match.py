@@ -18,8 +18,11 @@ Two model interfaces, as in the reference:
   ``log_prob_upars_fn``, ``log_lik_i_upars_fn``) with the reference
   signatures, through the host loop.
 
-The JAX package's sharding of the bad observations over a device mesh is
-not ported: this package runs on one device.
+With ``rcParams["device.auto_shard"]`` and more than one CUDA device, each
+tail-length group's lanes (its bad observations) are split over every device
+of :func:`pyloo_tpu_torch.parallel.obs_mesh`, as ``pyloo_tpu`` shards them;
+a group is padded to a multiple of the mesh size with lanes that replay its
+first observation at k = -inf, which never run.
 """
 
 from __future__ import annotations
@@ -49,7 +52,9 @@ from .helpers import (
 from .models.wrapper import JAXModelWrapper, map_draws
 from .ops import psislw_batch, tail_length
 from .ops.ess import ess_mean
-from .ops.moment_match import _transform, batched_moment_match
+from .ops.moment_match import _Lanes, _transform, run_lanes
+from .parallel.sharding import default_mesh, device_scope
+from .rcparams import rcParams
 from .split_moment_match import loo_moment_match_split
 from .utils import _logsumexp
 
@@ -434,34 +439,45 @@ def _moment_match_wrapper_batched(
     for j, i in enumerate(bad):
         groups.setdefault(tail_length(S, r_effs[i]), []).append(j)
 
-    orig_lp_dev = torch.tensor(np.asarray(orig_log_prob), dtype=torch.float64, device=device)
+    orig_lp = torch.tensor(np.asarray(orig_log_prob), dtype=torch.float64)
+    # the lanes of a group are split over the mesh: every lane's greedy loop
+    # is independent, so different observations run on different devices
+    mesh = default_mesh(device) if rcParams["device.auto_shard"] else None
+    devices = mesh.devices if mesh is not None else (device,)
+    on = {str(d): (upars_dev.to(d), orig_lp.to(d)) for d in devices}
     passes = 0
     for m_tail, rows in groups.items():
-        idxs = [bad[j] for j in rows]
-        log_liki0 = ll_bad[rows]
+        n_g = len(rows)
+        pad = (-n_g) % len(devices)
+        # padding lanes replay the group's first observation but start with
+        # k at -inf, so their loop condition is false from the start
+        rows_p = rows + [rows[0]] * pad
+        idxs = [bad[j] for j in rows_p]
+        log_liki0 = ll_bad[rows_p]
         lwi0, _ki_recomputed = psislw_batch(-log_liki0, m_tail)
         # host-loop parity: the greedy baseline k is the STORED pareto_k
         # from loo_data (reference loo_moment_match.py:389 ``ki = ks[i]``),
         # not the value recomputed from the initial weights
-        ki0 = torch.as_tensor(
-            np.asarray(ks, dtype=np.float64).flat[idxs].copy(), device=device
-        )
-        out = batched_moment_match(
-            upars_dev,
-            torch.as_tensor(idxs, device=device),
-            orig_lp_dev,
-            log_liki0,
-            lwi0,
-            ki0,
-            float(k_threshold),
-            log_prob_fn=log_prob_fn,
-            log_lik_col_fn=log_lik_col_fn,
-            tail_max=m_tail,
-            max_iters=max_iters,
-            use_cov=cov,
-        )
-        passes += out.pop("passes")
-        out = {k: v.cpu().numpy() for k, v in out.items()}
+        ki0_np = np.asarray(ks, dtype=np.float64).flat[idxs].copy()
+        ki0_np[n_g:] = -np.inf
+        ki0 = torch.as_tensor(ki0_np, device=device)
+        obs_idx = torch.as_tensor(idxs, device=device)
+        per = len(rows_p) // len(devices)
+        lanes = []
+        for j, d in enumerate(devices):
+            lane = slice(j * per, (j + 1) * per)
+            upars_d, orig_lp_d = on[str(d)]
+            with device_scope(d):
+                lanes.append(_Lanes(
+                    upars_d, obs_idx[lane].to(d), orig_lp_d, log_liki0[lane].to(d),
+                    lwi0[lane].to(d), ki0[lane].to(d), float(k_threshold),
+                    log_prob_fn=log_prob_fn, log_lik_col_fn=log_lik_col_fn,
+                    tail_max=m_tail, max_iters=max_iters, use_cov=cov,
+                ))
+        passes += run_lanes(lanes)
+        parts = [lane.result() for lane in lanes]
+        out = {k: torch.cat([p[k].cpu() for p in parts])[:n_g].numpy() for k in parts[0]}
+        idxs = idxs[:n_g]
         _log.info(
             f"Batched moment matching: group tail={m_tail} covered"
             f" {len(idxs)} observations,"

@@ -7,8 +7,10 @@ Student-t models", Comput. Stat. 36).  The conditional leave-one-out
 densities of every draw come from :mod:`pyloo_tpu_torch.ops.nonfactor` on
 the device, the draws' matrices copied there a chunk at a time, and the
 importance weights from :func:`pyloo_tpu_torch.compute_importance_weights`
-there too.  ``pyloo_tpu``'s sharding of the draws over a device mesh is not
-ported.
+there too.  With ``rcParams["device.auto_shard"]`` and more than one CUDA
+device, the chunks of draws are dealt over every device of
+:func:`pyloo_tpu_torch.parallel.obs_mesh`, as ``pyloo_tpu`` shards the draws
+over its mesh; the estimates are those of one device bit for bit.
 
 Three deliberate differences from the reference, each with its warning, are
 ``pyloo_tpu``'s: a precision matrix is used as given (the reference inverts
@@ -29,6 +31,7 @@ from .base import ISMethod, compute_importance_weights
 from .containers import DataArray
 from .elpd import ELPDData
 from .ops.nonfactor import mvn_conditional_loglik, mvt_conditional_loglik
+from .parallel.sharding import default_mesh
 from .rcparams import rcParams
 from .utils import _logsumexp, to_inference_data
 
@@ -182,9 +185,13 @@ def loo_nonfactor(
 
     y_vals = np.asarray(y.values, dtype=np.float64)
 
+    # draws are the parallel axis here (each needs the full N x N matrix),
+    # so they are sharded over the mesh (SURVEY.md section 5)
+    mesh = default_mesh(compute_device()) if rcParams["device.auto_shard"] else None
     kwargs = (
         {"cov": mats} if cov_matrix is not None else {"prec": mats}
     )
+    kwargs["mesh"] = mesh
     if model_type == "normal":
         ll = mvn_conditional_loglik(y_vals, mu_s, **kwargs)
     else:

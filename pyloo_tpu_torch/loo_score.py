@@ -26,7 +26,7 @@ from ._common import _any_rowblock, compute_reff, good_k_threshold
 from .base import _host, as_sample_matrix
 from .containers import DataArray, InferenceData
 from .ops import psislw_batch, tail_length
-from .ops.expectations import weighted_mean_batch
+from .ops.expectations import weighted_expectation_batch
 from .parallel import apply_rowwise
 from .rcparams import rcParams
 from .utils import get_log_likelihood, to_inference_data
@@ -50,22 +50,27 @@ class LooScoreResult:
     warning: bool | None = None
 
 
-def _crps_chunk(ll, x, x2, y, perms, *, tail_max: int, scale: bool):
+def _crps_chunk(ll, x, x2, y, perms, *, tail_max: int, scale: bool, type: str = "mean",
+                probs=None):
     """Pointwise (S)CRPS and Pareto k of a ``(B, S)`` chunk.
 
     ``E|X-y|`` under the PSIS weights of ``-ll``; ``E|X-X'|`` averaged over
     the ``(P, S)`` draw permutations ``perms``, each under the joint
     two-sample weights of ``-ll - ll[:, perm]`` (``pyloo_tpu``'s
     ``streaming._crps_chunk``, reference ``pyloo/loo_score.py:277-346``).
+    ``type`` / ``probs`` pick the expectation, as ``e_loo``'s do; a
+    quantile's scores are ``(B, n_probs)``.
     """
     neg = -ll
     lw, k = psislw_batch(neg, tail_max)
-    EXy = weighted_mean_batch((x - y[:, None]).abs(), lw)
+    EXy = weighted_expectation_batch((x - y[:, None]).abs(), lw, type, probs)
     del lw
     EXX = torch.zeros_like(EXy)
     for perm in perms:
         jlw, _ = psislw_batch(neg - ll.index_select(1, perm), tail_max)
-        EXX = EXX + weighted_mean_batch((x - x2.index_select(1, perm)).abs(), jlw)
+        EXX = EXX + weighted_expectation_batch(
+            (x - x2.index_select(1, perm)).abs(), jlw, type, probs
+        )
         del jlw
     EXX = EXX / perms.shape[0]
     return _crps(EXX, EXy, scale), k
@@ -77,6 +82,20 @@ def _crps(EXX, EXy, scale: bool = False):
     if scale:
         return -EXy / EXX - 0.5 * log(EXX)
     return 0.5 * EXX - EXy
+
+
+def _expectation_kind(kind: str, probs):
+    """``e_loo``'s checks of ``type`` and ``probs``; the probabilities as a tuple."""
+    if kind not in ("mean", "variance", "sd", "quantile"):
+        raise ValueError("type must be 'mean', 'variance', 'sd' or 'quantile'")
+    if kind != "quantile":
+        return kind, None
+    if probs is None:
+        raise ValueError("probs must be provided for quantile calculation")
+    probs = np.atleast_1d(np.asarray(probs, dtype=np.float64))
+    if not np.all((probs > 0) & (probs < 1)):
+        raise ValueError("probs must be between 0 and 1")
+    return kind, tuple(float(p) for p in probs)
 
 
 def _estimates(score_pw):
@@ -128,6 +147,7 @@ def loo_score(
     reff: float | None = None,
     scale: bool = False,
     seed: int | None = None,
+    **kwargs,
 ) -> LooScoreResult:
     """Leave-one-out (S)CRPS from two sets of predictive draws.
 
@@ -135,8 +155,16 @@ def loo_score(
     ``scale=True`` computes SCRPS ``-E|X-y|/E|X-X'| - 0.5 log E|X-X'|``.
     ``permutations`` averages several shuffled pairings of x2, drawn from
     ``np.random.default_rng(seed)``, to reduce the variance of E|X-X'|.
-    The work runs on ``rcParams["device.device"]`` in row chunks.
+    The keyword arguments go to both expectations, as ``pyloo_tpu``'s go to
+    its two ``e_loo`` calls: ``type`` and ``probs`` (``type="quantile",
+    probs=0.5`` takes weighted medians; a quantile's pointwise scores gain a
+    trailing axis of the probabilities).  The work runs on
+    ``rcParams["device.device"]`` in row chunks.
     """
+    unknown = set(kwargs) - {"type", "probs"}
+    if unknown:
+        raise TypeError(f"loo_score got unexpected keyword arguments {sorted(unknown)}")
+    kind, probs = _expectation_kind(kwargs.get("type", "mean"), kwargs.get("probs"))
     inference_data = to_inference_data(data)
     log_likelihood = get_log_likelihood(inference_data, var_name=var_name)
     pointwise = rcParams["stats.ic_pointwise"] if pointwise is None else pointwise
@@ -160,16 +188,17 @@ def loo_score(
     y = torch.as_tensor(np.asarray(y_aligned).reshape(-1)).to(x.device, x.dtype)
     _warn_non_finite(x, x2, y)
 
-    perms = torch.from_numpy(draw_permutations(seed, permutations, n_samples)).to(x.device)
+    perms = torch.from_numpy(draw_permutations(seed, permutations, n_samples))
     tail_max = tail_length(n_samples, reff)
     score, k = apply_rowwise(
-        lambda *rows: _crps_chunk(*rows, perms, tail_max=tail_max, scale=scale),
+        lambda *rows: _crps_chunk(*rows, perms.to(rows[0].device), tail_max=tail_max,
+                                  scale=scale, type=kind, probs=probs),
         (ll, x, x2, y),
         extra_buffers=_SCORE_EXTRA_BUFFERS,
     )
     del ll, x, x2
     x_obs_shape = tuple(x_data.sizes[d] for d in obs_dims)
-    score_pw = _host(score).reshape(x_obs_shape)
+    score_pw = _host(score).reshape(x_obs_shape + tuple(score.shape[1:]))
 
     result = LooScoreResult(estimates=_estimates(score_pw), pointwise=score_pw)
     if pointwise:

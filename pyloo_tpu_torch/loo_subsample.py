@@ -273,11 +273,14 @@ def loo_subsample(
     return result
 
 
-def _score_sampled(ll_sample, reff, scale_value):
-    """Exact PSIS-LOO of the ``(m, S)`` sampled rows on the device: the scaled
-    pointwise elpd, the Pareto k and the variance over draws, on the host."""
+def _score_sampled(ll_sample, reff, scale_value, mesh=None):
+    """Exact PSIS-LOO of the ``(m, S)`` sampled rows on the device (over
+    ``mesh``, or the default one): the scaled pointwise elpd, the Pareto k
+    and the variance over draws, on the host."""
     m_tail = tail_length(ll_sample.shape[1], reff)
-    elpd_sample, diagnostic, _ = apply_rowwise(lambda b: loo_scores_psis(b, m_tail), ll_sample)
+    elpd_sample, diagnostic, _ = apply_rowwise(
+        lambda b: loo_scores_psis(b, m_tail), ll_sample, mesh=mesh
+    )
     p_loo_values = _host(ll_sample.var(dim=1, correction=0))  # var over draws per sampled obs
     return scale_value * _host(elpd_sample), _host(diagnostic), p_loo_values
 
@@ -413,6 +416,7 @@ def update_subsample(
             "pointwise": "loo_i" in loo_data,
             "scale": loo_data["scale"],
             "dtype": stream["dtype"],
+            "mesh": stream.get("mesh"),
             "seed": None,
         }
         params.update(kwargs)

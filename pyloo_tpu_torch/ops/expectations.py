@@ -21,6 +21,7 @@ __all__ = [
     "weighted_mean_batch",
     "weighted_variance_batch",
     "weighted_quantile_batch",
+    "weighted_expectation_batch",
     "khat_batch",
 ]
 
@@ -99,6 +100,18 @@ def weighted_quantile_batch(x, log_weights, probs):
     interp = x_lo + (x_hi - x_lo) * (p - w_lo) / torch.where(w_hi == w_lo, 1.0, w_hi - w_lo)
     weighted = torch.where(wi == 0, xs[:, :1], torch.where(any_ge, interp, xs[:, -1:]))
     return torch.where(uniform_row[:, None], plain, weighted)
+
+
+def weighted_expectation_batch(x, log_weights, kind: str, probs=None):
+    """The weighted expectation of each row that ``e_loo``'s ``type`` names:
+    ``"mean"``, ``"variance"`` or ``"sd"`` as ``(B,)``, ``"quantile"`` at
+    ``probs`` as ``(B, n_probs)``."""
+    if kind == "mean":
+        return weighted_mean_batch(x, log_weights)
+    if kind in ("variance", "sd"):
+        value = weighted_variance_batch(x, log_weights)
+        return torch.sqrt(value) if kind == "sd" else value
+    return weighted_quantile_batch(x, log_weights, probs)
 
 
 def _tail_khat(values, tail_len: int):

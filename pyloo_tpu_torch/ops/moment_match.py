@@ -31,10 +31,12 @@ import math
 
 import torch
 
+from ..parallel.sharding import device_scope
 from .psis import psislw_batch
 
 __all__ = [
     "batched_moment_match",
+    "run_lanes",
     "split_transform_halves",
     "split_mixture_log_weights",
 ]
@@ -148,6 +150,98 @@ def _transform(uparsi, lwi, kind: int):
     return new, shift, ones, mapping, ok
 
 
+class _Lanes:
+    """The greedy loop's state for a set of lanes on one device, one pass
+    at a time: :meth:`step` queues a pass, ``active`` says (on the device)
+    which lanes go on."""
+
+    def __init__(self, upars, obs_idx, orig_log_prob, log_liki0, lwi0, ki0,
+                 k_threshold: float, *, log_prob_fn, log_lik_col_fn, tail_max: int,
+                 max_iters: int, use_cov: bool):
+        n = obs_idx.shape[0]
+        S, P = upars.shape
+        dtype, device = upars.dtype, upars.device
+        self.st = {
+            "upars": upars.expand(n, S, P),
+            "lwi": lwi0,
+            "ki": ki0,
+            "kfi": torch.zeros((n,), dtype=dtype, device=device),
+            "log_liki": log_liki0,
+            "total_shift": torch.zeros((n, P), dtype=dtype, device=device),
+            "total_scaling": torch.ones((n, P), dtype=dtype, device=device),
+            "total_mapping": torch.eye(P, dtype=dtype, device=device).expand(n, P, P),
+        }
+        self.iterind = torch.ones((n,), dtype=torch.int64, device=device)
+        self.obs_idx, self.orig_log_prob = obs_idx, orig_log_prob
+        self.k_threshold, self.max_iters, self.tail_max = k_threshold, max_iters, tail_max
+        self.log_prob_fn, self.log_lik_col_fn = log_prob_fn, log_lik_col_fn
+        self.kinds = (0, 1, 2) if use_cov else (0, 1)
+        self.active = (self.iterind <= max_iters) & (self.st["ki"] > k_threshold)
+
+    def step(self) -> None:
+        """One pass over the transforms, for the active lanes."""
+        st, active, n = self.st, self.active, self.obs_idx.shape[0]
+
+        def upd(accept, new, old):
+            return torch.where(accept.reshape((-1,) + (1,) * (new.ndim - 1)), new, old)
+
+        progressing = torch.zeros((n,), dtype=torch.bool, device=active.device)
+        for kind in self.kinds:
+            new_upars, shift, scaling, mapping, _ = _transform(st["upars"], st["lwi"], kind)
+            log_prob_new = self.log_prob_fn(new_upars)
+            log_liki_new = self.log_lik_col_fn(new_upars, self.obs_idx)
+            lr = -log_liki_new + log_prob_new - self.orig_log_prob[None, :]
+            lr = torch.where(torch.isnan(lr), -math.inf, lr)
+            lwi_new, ki_new = psislw_batch(lr, self.tail_max)
+            full_lr = log_prob_new - self.orig_log_prob[None, :]
+            full_lr = torch.where(torch.isnan(full_lr), -math.inf, full_lr)
+            _, kfi_new = psislw_batch(full_lr, self.tail_max)
+
+            # NaN candidates lose (host: skip); inactive lanes keep their state
+            accept = active & (ki_new < st["ki"])
+            st = {
+                "upars": upd(accept, new_upars, st["upars"]),
+                "lwi": upd(accept, lwi_new, st["lwi"]),
+                "ki": upd(accept, ki_new, st["ki"]),
+                "kfi": upd(accept, kfi_new, st["kfi"]),
+                "log_liki": upd(accept, log_liki_new, st["log_liki"]),
+                "total_shift": upd(accept, st["total_shift"] + shift, st["total_shift"]),
+                "total_scaling": upd(
+                    accept, st["total_scaling"] * scaling, st["total_scaling"]
+                ),
+                "total_mapping": upd(
+                    accept, mapping @ st["total_mapping"], st["total_mapping"]
+                ),
+            }
+            self.iterind = self.iterind + accept.to(self.iterind.dtype)
+            progressing = progressing | accept
+        self.st = st
+        self.active = (active & (self.iterind <= self.max_iters)
+                       & (st["ki"] > self.k_threshold) & progressing)
+
+    def result(self) -> dict:
+        out = {k: v for k, v in self.st.items() if k != "upars"}
+        out["n_accepted"] = self.iterind - 1
+        out["reached_max"] = self.iterind > self.max_iters
+        return out
+
+
+def run_lanes(lanes: list) -> int:
+    """Run the greedy loops of lane sets on their devices side by side, and
+    return the passes run.  A pass is queued on every device whose lanes go
+    on before any is read: one host read a device a pass."""
+    going = [bool(lane.active.any()) for lane in lanes]
+    passes = 0
+    while any(going):
+        passes += 1
+        for lane, on in zip(lanes, going):
+            if on:
+                with device_scope(lane.active.device):
+                    lane.step()
+        going = [on and bool(lane.active.any()) for lane, on in zip(lanes, going)]
+    return passes
+
+
 def batched_moment_match(
     upars,
     obs_idx,
@@ -197,65 +291,13 @@ def batched_moment_match(
 
     The loop reads one flag on the host a pass (whether any lane is still
     active): at most ``max_iters + 1`` reads, since an active lane has
-    accepted at least one transform in each earlier pass.
+    accepted at least one transform in each earlier pass.  Sharded over
+    devices, the lanes are sets of their own run by :func:`run_lanes`.
     """
-    n = obs_idx.shape[0]
-    S, P = upars.shape
-    dtype, device = upars.dtype, upars.device
-    st = {
-        "upars": upars.expand(n, S, P),
-        "lwi": lwi0,
-        "ki": ki0,
-        "kfi": torch.zeros((n,), dtype=dtype, device=device),
-        "log_liki": log_liki0,
-        "total_shift": torch.zeros((n, P), dtype=dtype, device=device),
-        "total_scaling": torch.ones((n, P), dtype=dtype, device=device),
-        "total_mapping": torch.eye(P, dtype=dtype, device=device).expand(n, P, P),
-    }
-    iterind = torch.ones((n,), dtype=torch.int64, device=device)
-    kinds = (0, 1, 2) if use_cov else (0, 1)
-
-    def upd(accept, new, old):
-        return torch.where(accept.reshape((-1,) + (1,) * (new.ndim - 1)), new, old)
-
-    active = (iterind <= max_iters) & (st["ki"] > k_threshold)
-    passes = 0
-    while bool(active.any()):  # the pass's one host read
-        passes += 1
-        progressing = torch.zeros((n,), dtype=torch.bool, device=device)
-        for kind in kinds:
-            new_upars, shift, scaling, mapping, _ = _transform(st["upars"], st["lwi"], kind)
-            log_prob_new = log_prob_fn(new_upars)
-            log_liki_new = log_lik_col_fn(new_upars, obs_idx)
-            lr = -log_liki_new + log_prob_new - orig_log_prob[None, :]
-            lr = torch.where(torch.isnan(lr), -math.inf, lr)
-            lwi_new, ki_new = psislw_batch(lr, tail_max)
-            full_lr = log_prob_new - orig_log_prob[None, :]
-            full_lr = torch.where(torch.isnan(full_lr), -math.inf, full_lr)
-            _, kfi_new = psislw_batch(full_lr, tail_max)
-
-            # NaN candidates lose (host: skip); inactive lanes keep their state
-            accept = active & (ki_new < st["ki"])
-            st = {
-                "upars": upd(accept, new_upars, st["upars"]),
-                "lwi": upd(accept, lwi_new, st["lwi"]),
-                "ki": upd(accept, ki_new, st["ki"]),
-                "kfi": upd(accept, kfi_new, st["kfi"]),
-                "log_liki": upd(accept, log_liki_new, st["log_liki"]),
-                "total_shift": upd(accept, st["total_shift"] + shift, st["total_shift"]),
-                "total_scaling": upd(
-                    accept, st["total_scaling"] * scaling, st["total_scaling"]
-                ),
-                "total_mapping": upd(
-                    accept, mapping @ st["total_mapping"], st["total_mapping"]
-                ),
-            }
-            iterind = iterind + accept.to(iterind.dtype)
-            progressing = progressing | accept
-        active = active & (iterind <= max_iters) & (st["ki"] > k_threshold) & progressing
-
-    del st["upars"]
-    st["n_accepted"] = iterind - 1
-    st["reached_max"] = iterind > max_iters
-    st["passes"] = passes
-    return st
+    lanes = _Lanes(upars, obs_idx, orig_log_prob, log_liki0, lwi0, ki0, k_threshold,
+                   log_prob_fn=log_prob_fn, log_lik_col_fn=log_lik_col_fn,
+                   tail_max=tail_max, max_iters=max_iters, use_cov=use_cov)
+    passes = run_lanes([lanes])
+    out = lanes.result()
+    out["passes"] = passes
+    return out

@@ -21,7 +21,10 @@ The draws go through in chunks whose matrices fit ``_CHUNK_BUDGET_BYTES`` of
 device memory (the chunk's matrices on the device, its factor and its
 inverse factor, and a temporary of the solve), so an ``(S, N, N)`` input
 that lies on the host is copied to the device one chunk at a time; each
-draw is independent, so chunking changes no value.
+draw is independent, so chunking changes no value.  Over a mesh
+(:class:`pyloo_tpu_torch.parallel.Mesh`) the chunks are dealt over its
+devices in turn, each factorising its own: the draw axis is sharded, as
+``pyloo_tpu`` shards it, and every draw's row is the same computation.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import numpy as np
 import torch
 
 from .._common import compute_device
+from ..parallel.sharding import device_scope
 
 __all__ = ["mvn_conditional_loglik", "mvt_conditional_loglik", "draws_per_chunk"]
 
@@ -116,44 +120,52 @@ def _mvt_chunk(y, mu, df, cov=None, prec=None):
     return torch.where(invalid, -math.inf, ll)
 
 
-def _by_chunks(fn, y, mu, per_draw: tuple, matrix):
+def _by_chunks(fn, y, mu, per_draw: tuple, matrix, mesh=None):
     """``fn`` over chunks of draws; ``per_draw`` are further (S, ...) inputs
-    and ``matrix`` the (S, N, N) one.  Returns the (S, N) result on the
-    computation device."""
+    and ``matrix`` the (S, N, N) one.  Over ``mesh`` chunk ``i`` runs on its
+    device ``i % mesh.size``.  Returns the (S, N) result on the computation
+    device."""
     device = compute_device()
-    y = _as_device(y, device)
-    S, N = mu.shape[0], y.shape[0]
+    devices = mesh.devices if mesh is not None else (device,)
+    ys = {str(d): _as_device(y, d) for d in devices}
+    S, N = mu.shape[0], ys[str(devices[0])].shape[0]
     chunk = draws_per_chunk(N)
     out = torch.empty((S, N), dtype=torch.float64, device=device)
-    for start in range(0, S, chunk):
+    for i, start in enumerate(range(0, S, chunk)):
         sl = slice(start, min(start + chunk, S))
-        args = [_as_device(a[sl], device) for a in (mu,) + per_draw + (matrix,)]
-        out[sl] = fn(y, *args)
+        on = devices[i % len(devices)]
+        with device_scope(on):
+            args = [_as_device(a[sl], on) for a in (mu,) + per_draw + (matrix,)]
+            out[sl] = fn(ys[str(on)], *args)
+            del args
     return out
 
 
-def mvn_conditional_loglik(y, mu, cov=None, prec=None):
+def mvn_conditional_loglik(y, mu, cov=None, prec=None, *, mesh=None):
     """(S, N) conditional leave-one-out log-densities for a joint MVN.
 
     log p(y_i | y_-i, theta_s) = -0.5 log 2pi + 0.5 log Pbar_ii
     - 0.5 g_i^2 / Pbar_ii.  A covariance draw that is not positive definite
     gives a ``-inf`` row.  ``y`` is (N,), ``mu`` (S, N) and ``cov`` or
     ``prec`` (S, N, N), numpy arrays or tensors; the result is a tensor on
-    ``rcParams["device.device"]``.
+    ``rcParams["device.device"]``.  ``mesh`` deals the chunks of draws
+    over its devices.
     """
     if cov is not None:
-        return _by_chunks(lambda y, m, c: _mvn_chunk(y, m, cov=c), y, mu, (), cov)
-    return _by_chunks(lambda y, m, p: _mvn_chunk(y, m, prec=p), y, mu, (), prec)
+        return _by_chunks(lambda y, m, c: _mvn_chunk(y, m, cov=c), y, mu, (), cov, mesh)
+    return _by_chunks(lambda y, m, p: _mvn_chunk(y, m, prec=p), y, mu, (), prec, mesh)
 
 
-def mvt_conditional_loglik(y, mu, df, cov=None, prec=None):
+def mvt_conditional_loglik(y, mu, df, cov=None, prec=None, *, mesh=None):
     """(S, N) conditional LOO log-densities for a joint multivariate-t.
 
     The conditional is a Student-t with df+N-1 degrees of freedom, location
     y_i - g_i/Pbar_ii and scale^2 (df + beta_-i)/(df+N-1)/Pbar_ii.  ``df``
-    is (S,); draws with ``df <= 0`` give ``-inf`` rows.  Inputs and result as
-    in :func:`mvn_conditional_loglik`.
+    is (S,); draws with ``df <= 0`` give ``-inf`` rows.  Inputs, result and
+    ``mesh`` as in :func:`mvn_conditional_loglik`.
     """
     if cov is not None:
-        return _by_chunks(lambda y, m, d, c: _mvt_chunk(y, m, d, cov=c), y, mu, (df,), cov)
-    return _by_chunks(lambda y, m, d, p: _mvt_chunk(y, m, d, prec=p), y, mu, (df,), prec)
+        return _by_chunks(lambda y, m, d, c: _mvt_chunk(y, m, d, cov=c), y, mu, (df,), cov,
+                          mesh)
+    return _by_chunks(lambda y, m, d, p: _mvt_chunk(y, m, d, prec=p), y, mu, (df,), prec,
+                      mesh)

@@ -17,9 +17,12 @@ for Hopper replace the TPU's Pallas kernels:
   CUDA kernels fold them one after another into a running top 256
   (:func:`topk_desc_reshape_fold_plain`, :func:`topk_desc_natural_fold_plain`).
 
-Each wrapper launches its kernel for a CUDA tensor, counts the launch in its
-``launches`` attribute (for :func:`topk_desc`, a dict keyed by variant), and
-raises when the kernel does not take the input.  For a tensor on the CPU it
+Each wrapper launches its kernel for a CUDA tensor on that tensor's device
+and its current stream (the caller's current device is left as it was),
+counts the launch in its ``launches`` attribute (for :func:`topk_desc`, a
+dict keyed by variant) and per device in ``by_device`` (keyed by the
+device's name, ``"cuda:1"``; for :func:`topk_desc`, by variant and then
+device), and raises when the kernel does not take the input.  For a tensor on the CPU it
 returns its plain PyTorch version (:func:`loo_prepass_plain`,
 :func:`topk_desc_plain`, :func:`topk_desc_reshape_plain`,
 :func:`topk_desc_natural_plain`), which the CPU tests compare with the JAX
@@ -186,6 +189,12 @@ def bitonic_blocks_per_sm(variant: str, device="cuda") -> int:
     return n
 
 
+def _count_on(by_device: dict, device: torch.device) -> None:
+    """One launch more on ``device`` in a wrapper's per-device counts."""
+    name = str(_cuda_device(device))
+    by_device[name] = by_device.get(name, 0) + 1
+
+
 def _raise_on(code: int, lib, what: str) -> None:
     if code != 0:
         msg = lib.pyloo_error_string(code).decode()
@@ -245,10 +254,12 @@ def loo_prepass(x: torch.Tensor, k: int):
     )
     _raise_on(code, lib, "loo_prepass")
     loo_prepass.launches += 1
+    _count_on(loo_prepass.by_device, x.device)
     return vals, c, log_ntl, log_sum_ll
 
 
 loo_prepass.launches = 0
+loo_prepass.by_device = {}
 
 
 def loo_prepass_multi(x: torch.Tensor, k: int, parts: int):
@@ -554,7 +565,9 @@ def topk_desc(x: torch.Tensor, k: int, variant: str = "roll") -> torch.Tensor:
         return prepared[3]
     _topk_launch(variant, x, k, prepared)
     topk_desc.launches[variant] += 1
+    _count_on(topk_desc.by_device[variant], x.device)
     return prepared[3]
 
 
 topk_desc.launches = dict.fromkeys(TOPK_VARIANTS, 0)
+topk_desc.by_device = {variant: {} for variant in TOPK_VARIANTS}

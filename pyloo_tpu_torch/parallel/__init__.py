@@ -1,5 +1,5 @@
-"""Row-parallel execution of the per-observation scorers."""
+"""Row-parallel execution of the per-observation scorers over a device mesh."""
 
-from .sharding import apply_rowwise
+from .sharding import Mesh, apply_rowwise, obs_mesh
 
-__all__ = ["apply_rowwise"]
+__all__ = ["Mesh", "obs_mesh", "apply_rowwise"]

@@ -29,7 +29,8 @@ def trace(log_dir: str):
     The host's operations are always recorded; the CUDA device's kernels
     and copies too when ``rcParams["device.device"]`` is ``"cuda"``.  The
     file is ``log_dir/trace_<pid>_<n>.json``; the block's end waits for the
-    device's queued work, so its kernels are in the trace.
+    device's queued work, so its kernels are in the trace.  A block that
+    raises still writes its trace, and the exception goes on.
 
     >>> with trace("/tmp/loo-trace"):
     ...     loo(idata)
@@ -39,12 +40,18 @@ def trace(log_dir: str):
     cuda = compute_device().type == "cuda"
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield
-        if cuda:
-            torch.cuda.synchronize()
-    n = len([name for name in os.listdir(log_dir) if name.startswith(f"trace_{os.getpid()}_")])
-    prof.export_chrome_trace(os.path.join(log_dir, f"trace_{os.getpid()}_{n}.json"))
+    prof = profile(activities=activities)
+    try:
+        with prof:
+            try:
+                yield
+            finally:
+                if cuda:
+                    torch.cuda.synchronize()
+    finally:
+        n = len([name for name in os.listdir(log_dir)
+                 if name.startswith(f"trace_{os.getpid()}_")])
+        prof.export_chrome_trace(os.path.join(log_dir, f"trace_{os.getpid()}_{n}.json"))
 
 
 def annotate(name: str):

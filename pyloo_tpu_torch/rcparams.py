@@ -41,9 +41,11 @@ _DEFAULTS: dict[str, tuple[Any, Callable[[Any], Any]]] = {
     # where tensors live and kernels run.  "cuda" with no CUDA device makes
     # every entry point raise: nothing moves to the CPU on its own.
     "device.device": ("cuda", _choice_validator("cuda", "cpu")),
-    # validated but without effect here: pyloo_tpu's multi-device sharding
-    # and its XLA compilation cache have no counterpart in this package
+    # loo_nonfactor's draws and moment matching's lanes over every CUDA
+    # device of obs_mesh() (row-parallel scorers shard whenever a mesh exists)
     "device.auto_shard": (True, _bool_validator),
+    # validated but without effect here: pyloo_tpu's XLA compilation cache
+    # has no counterpart in this package
     "device.compilation_cache": ("auto", _choice_validator("auto", "on", "off")),
 }
 

@@ -10,7 +10,6 @@ Pareto-k diagnostic in one step, and only the ``(n_obs,)`` results are kept.
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from .._common import compute_device
 from ..containers import DataArray
@@ -22,14 +21,10 @@ from ..e_loo import (
 )
 from ..loo_predictive_metric import _accuracy, _balanced_accuracy, _mae, _mse, _rmse
 from ..ops import psislw_batch, tail_length
-from ..ops.expectations import (
-    khat_batch,
-    weighted_mean_batch,
-    weighted_quantile_batch,
-    weighted_variance_batch,
-)
+from ..ops.expectations import khat_batch, weighted_expectation_batch
+from ..parallel.sharding import as_mesh
 from . import _chunks
-from .loo import _as_dtype, _check_stream_args
+from .loo import _as_dtype
 
 __all__ = ["e_loo_streaming", "loo_predictive_metric_streaming"]
 
@@ -41,14 +36,7 @@ def _eloo_chunk(ll, x, *, kind: str, tail_max: int, probs):
     """One chunk's expectation and its function-specific Pareto k."""
     log_ratios = -ll
     lw, _ = psislw_batch(log_ratios, tail_max)
-    if kind == "mean":
-        value = weighted_mean_batch(x, lw)
-    elif kind in ("variance", "sd"):
-        value = weighted_variance_batch(x, lw)
-        if kind == "sd":
-            value = torch.sqrt(value)
-    else:
-        value = weighted_quantile_batch(x, lw, probs)
+    value = weighted_expectation_batch(x, lw, kind, probs)
     del lw
     if kind == "quantile":
         k = khat_batch(log_ratios, log_ratios, use_h=False)
@@ -93,7 +81,7 @@ def e_loo_streaming(
     chunk_size, dtype, mesh, on_chunk
         As in :func:`pyloo_tpu_torch.loo_streaming`; the default chunk keeps
         each ``(chunk, n_draws)`` tensor under ~1 GB, since two are resident.
-        ``mesh`` is not supported (one device).
+        Over a ``mesh`` each chunk's rows are dealt over its devices.
 
     Returns
     -------
@@ -118,33 +106,36 @@ def e_loo_streaming(
         raise ValueError("PSIS requires at least 2 draws per observation.")
     if n_obs < 1:
         raise ValueError("n_obs must be positive.")
-    _check_stream_args(mesh, "e_loo_streaming")
+    mesh = as_mesh(mesh, "e_loo_streaming")
 
     device = compute_device()
     dtype = _as_dtype(dtype)
     chunk_size, n_chunks = _chunks.resolve_chunk(
-        chunk_size, n_obs, n_draws, dtype, budget=ELOO_CHUNK_BUDGET
+        chunk_size, n_obs, n_draws, dtype, budget=ELOO_CHUNK_BUDGET, mesh=mesh
     )
+    shards = _chunks.Shards(mesh, chunk_size, n_chunks, n_obs, device)
     tail_max = tail_length(n_draws, reff)
     make_ll, make_x = (
-        _chunks.chunk_maker(fn, chunk_size, n_obs, n_draws, dtype, device, name)
+        _chunks.chunk_maker(fn, chunk_size, n_obs, n_draws, dtype, shards.devices, name)
         for fn, name in ((log_lik_fn, "log_lik_fn"), (x_fn, "x_fn"))
     )
 
-    value_shape = (n_chunks * chunk_size,) + (() if probs_tuple is None else (len(probs_tuple),))
-    buf_v = torch.zeros(value_shape, dtype=dtype, device=device)
-    buf_k = torch.zeros(n_chunks * chunk_size, dtype=dtype, device=device)
+    bufs_v = shards.buffers(dtype, () if probs_tuple is None else (len(probs_tuple),))
+    bufs_k = shards.buffers(dtype)
     for c in range(n_chunks):
-        idx, _ = _chunks.chunk_indices(c, chunk_size, n_obs, device)
-        rows = slice(c * chunk_size, (c + 1) * chunk_size)
-        buf_v[rows], buf_k[rows] = _eloo_chunk(
-            make_ll(c, idx), make_x(c, idx), kind=type, tail_max=tail_max, probs=probs_tuple
-        )
+        for j, _ in shards:
+            with shards.scope(j):
+                idx, _ = shards.indices(c, j)
+                rows = shards.part(c)
+                bufs_v[j][rows], bufs_k[j][rows] = _eloo_chunk(
+                    make_ll(c, j, idx), make_x(c, j, idx), kind=type, tail_max=tail_max,
+                    probs=probs_tuple,
+                )
         if on_chunk is not None:
             on_chunk(c + 1, n_chunks)
 
-    value_host = buf_v.cpu().numpy()[:n_obs]
-    k_host = buf_k.cpu().numpy().astype(np.float64)[:n_obs]
+    value_host = shards.host(bufs_v)
+    k_host = shards.host(bufs_k).astype(np.float64)
 
     k_da = DataArray(k_host, ("obs",), name="pareto_k")
     if probs_tuple is None:

@@ -19,8 +19,9 @@ import torch
 from .._common import compute_device, resolve_scale
 from ..base import ISMethod
 from ..loo_group import _logo_result
+from ..parallel.sharding import as_mesh
 from . import _chunks
-from .loo import _as_dtype, _check_stream_args
+from .loo import _as_dtype
 
 __all__ = ["loo_group_streaming"]
 
@@ -51,7 +52,10 @@ def loo_group_streaming(
     :func:`pyloo_tpu_torch.loo_streaming` (a disk chunk source included);
     ``group_ids`` is the length-``n_obs`` host vector of group labels.  The
     group sums are float64 whatever ``dtype``, so the group scorer is the
-    exact float64 one.  ``mesh`` is not supported (one device).
+    exact float64 one.  Over a ``mesh`` each device adds its shards' rows
+    into a group matrix of its own, and the matrices are added on the host
+    in device order: a group whose rows lie on several devices is summed in
+    another order than with no mesh.
     """
     scale, scale_value = resolve_scale(scale)
     if n_draws < 2:
@@ -80,26 +84,35 @@ def loo_group_streaming(
             UserWarning,
             stacklevel=2,
         )
-    _check_stream_args(mesh, "loo_group_streaming")
+    mesh = as_mesh(mesh, "loo_group_streaming")
 
     device = compute_device()
     dtype = _as_dtype(dtype)
-    chunk_size, n_chunks = _chunks.resolve_chunk(chunk_size, n_obs, n_draws, dtype)
-    make = _chunks.chunk_maker(log_lik_fn, chunk_size, n_obs, n_draws, dtype, device,
+    chunk_size, n_chunks = _chunks.resolve_chunk(chunk_size, n_obs, n_draws, dtype, mesh=mesh)
+    shards = _chunks.Shards(mesh, chunk_size, n_chunks, n_obs, device)
+    make = _chunks.chunk_maker(log_lik_fn, chunk_size, n_obs, n_draws, dtype, shards.devices,
                                "log_lik_fn")
 
     # segment ids, padded with the overflow group for the ragged tail
     seg_host = np.full(n_chunks * chunk_size, n_groups, np.int64)
     seg_host[:n_obs] = group_index.reshape(-1)
-    seg = torch.from_numpy(seg_host).to(device)
+    segs = shards.split(seg_host, torch.int64)
 
-    sums = torch.zeros((n_groups + 1, n_draws), dtype=_ACC, device=device)
+    sums = [torch.zeros((n_groups + 1, n_draws), dtype=_ACC, device=d) for d in shards.devices]
     for c in range(n_chunks):
-        idx, _ = _chunks.chunk_indices(c, chunk_size, n_obs, device)
-        sums.index_add_(0, seg[c * chunk_size : (c + 1) * chunk_size], make(c, idx).to(_ACC))
+        for j, _ in shards:
+            with shards.scope(j):
+                idx, _ = shards.indices(c, j)
+                sums[j].index_add_(0, segs[j][shards.part(c)], make(c, j, idx).to(_ACC))
         if on_chunk is not None:
             on_chunk(c + 1, n_chunks)
+    total = sums[0]
+    if len(sums) > 1:  # the devices' group matrices meet on the host
+        total = sums[0].cpu()
+        for part in sums[1:]:
+            total += part.cpu()
+        total = total.to(device)
 
     return _logo_result(
-        sums[:n_groups], unique_groups, n_draws, reff, scale, scale_value, method, pointwise,
+        total[:n_groups], unique_groups, n_draws, reff, scale, scale_value, method, pointwise,
     )

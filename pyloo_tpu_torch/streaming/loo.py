@@ -14,10 +14,22 @@ crosses to the host until the end::
 
 ``log_lik_fn`` may also be a disk chunk source
 (:class:`pyloo_tpu_torch.io.NpyLogLik`), read chunk by chunk on the host and
-copied to the device.  Left out: ``mesh`` (one device), which raises
-``NotImplementedError``.  ``pyloo_tpu``'s generator program cache and its
-tiled chunk layout are JAX and TPU devices with no counterpart under eager
-torch.
+copied to the device.
+
+Over a ``mesh`` (:func:`pyloo_tpu_torch.parallel.obs_mesh`) each chunk's rows
+are dealt over its devices: ``log_lik_fn`` is called once a shard with the
+shard's indices on the shard's device and must return rows there, so a model
+held on one card keeps a copy on each, keyed on ``idx.device``::
+
+    copies = {d: (x.to(d), y.to(d), beta.to(d)) for d in mesh.devices}
+
+    def log_lik_fn(idx):
+        x, y, beta = copies[idx.device]
+        ...
+
+Each device keeps its own carry; the carries are combined as scalars at the
+end.  ``pyloo_tpu``'s generator program cache and its tiled chunk layout
+are JAX and TPU devices with no counterpart under eager torch.
 """
 
 from __future__ import annotations
@@ -35,6 +47,7 @@ from ..base import ISMethod
 from ..containers import DataArray
 from ..loo import _assemble
 from ..ops import tail_length
+from ..parallel.sharding import as_mesh
 from ..rcparams import rcParams
 from . import _accumulate, _checkpoint, _chunks
 
@@ -52,12 +65,17 @@ def clear_streaming_cache(log_lik_fn=None) -> None:
     del log_lik_fn
 
 
-def _check_stream_args(mesh, name: str) -> None:
-    """Refuse what the port does not support: a mesh."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"mesh is not supported by pyloo_tpu_torch: {name} runs on one device"
-        )
+def _save(path, geometry, chunk, carries, shards, bufs_e, bufs_d) -> None:
+    """A checkpoint of the shards' state as one: the carries combined, the
+    pointwise buffers in row order (the layout of a run with no mesh)."""
+    carry = {k: torch.tensor(v, dtype=carries[0][k].dtype)
+             for k, v in _accumulate.combine_carries(carries).items()}
+    buf_e = buf_d = None
+    if bufs_e is not None:
+        n_rows = shards.n_chunks * shards.chunk_size
+        buf_e = torch.from_numpy(shards.host(bufs_e, n_rows))
+        buf_d = torch.from_numpy(shards.host(bufs_d, n_rows))
+    _checkpoint.save_checkpoint(path, geometry, chunk, carry, buf_e, buf_d)
 
 
 def _as_dtype(dtype) -> torch.dtype:
@@ -100,11 +118,13 @@ def loo_streaming(
     Parameters
     ----------
     log_lik_fn : callable or NpyLogLik
-        Maps a ``(chunk,)`` int64 tensor of observation indices on the
-        device (a ragged last chunk repeats index ``n_obs - 1``) to the
-        ``(chunk, n_draws)`` log-likelihood of those observations, a tensor
-        on the same device (``rcParams["device.device"]``); a tensor
-        elsewhere raises.  Called once per chunk; it is cast to ``dtype``.
+        Maps a ``(rows,)`` int64 tensor of observation indices ``idx`` (a
+        ragged last chunk repeats index ``n_obs - 1``) to the
+        ``(rows, n_draws)`` log-likelihood of those observations, a tensor
+        on ``idx.device``; a tensor elsewhere raises.  Called once per chunk
+        with the chunk's indices on ``rcParams["device.device"]``, or over a
+        ``mesh`` once per chunk and shard with the shard's indices on the
+        shard's device; it is cast to ``dtype``.
         Or a disk chunk source with at least ``n_obs`` rows of ``n_draws``
         draws (:class:`pyloo_tpu_torch.io.NpyLogLik`).
     n_obs, n_draws : int
@@ -114,8 +134,9 @@ def loo_streaming(
     chunk_size : int, optional
         Rows per step.  The default takes the fewest chunks that keep each
         chunk's log-likelihood under ~2 GB and splits the sweep evenly
-        across them, rounded to a multiple of 8.  A checkpoint resume must
-        use the chunk size its file was written with.
+        across them, rounded to a multiple of 8 (of ``lcm(8, mesh.size)``
+        over a mesh).  A checkpoint resume must use the chunk size its file
+        was written with.
     pointwise : bool
         Also return per-observation ``loo_i`` and diagnostics (adds an
         ``(n_obs,)`` device buffer and one host copy).
@@ -126,17 +147,21 @@ def loo_streaming(
         pass with a running normalizer.  ``method`` is ignored and the
         diagnostic is zero, as in :func:`pyloo_tpu_torch.loo`.
     jacobian_fn : callable, optional
-        ``(chunk,) int64 -> (chunk,)`` Jacobian adjustment for a transformed
+        ``(rows,) int64 -> (rows,)`` Jacobian adjustment for a transformed
         response (reference ``pyloo/loo.py:414-439``), in the units of the
-        scaled pointwise elpd, on the same device as the chunks.
+        scaled pointwise elpd, on ``idx.device`` as the chunks.
     scale : {"log", "negative_log", "deviance"}, optional
     dtype : optional
         Computation dtype (``"float32"``, ``"float64"``, a numpy or torch
         dtype); defaults to ``rcParams["device.precision"]``.  float32 takes
         the fast PSIS path through the CUDA prepass kernel, float64 the
         reference-exact one.
-    mesh : None
-        Not supported: this package runs on one device.
+    mesh : Mesh, optional
+        :class:`pyloo_tpu_torch.parallel.Mesh` of devices; each chunk's rows
+        are dealt over them in equal blocks, each scored on its device.
+        Per-row results equal the run with no mesh bit for bit but where a
+        float64 block takes the other branch of the deep-tail guard than
+        its chunk did.
     checkpoint_path : str, optional
         Save the carry (and the pointwise buffers) to this file every
         ``checkpoint_every`` chunks, atomically; if the file exists and its
@@ -158,13 +183,14 @@ def loo_streaming(
         raise ValueError("PSIS requires at least 2 draws per observation.")
     if n_obs < 1:
         raise ValueError("n_obs must be positive.")
-    _check_stream_args(mesh, "loo_streaming")
+    mesh = as_mesh(mesh, "loo_streaming")
 
     device = compute_device()
     dtype = _as_dtype(dtype)
     dtype_name = str(dtype).removeprefix("torch.")
-    chunk_size, n_chunks = _chunks.resolve_chunk(chunk_size, n_obs, n_draws, dtype)
+    chunk_size, n_chunks = _chunks.resolve_chunk(chunk_size, n_obs, n_draws, dtype, mesh=mesh)
     tail_max = tail_length(n_draws, reff)
+    shards = _chunks.Shards(mesh, chunk_size, n_chunks, n_obs, device)
 
     good_k = good_k_threshold(n_draws)
     if mixture:
@@ -176,12 +202,11 @@ def loo_streaming(
             UserWarning,
             stacklevel=2,
         )
-    carry = _accumulate.init_carry(method, mixture, dtype, good_k, device)
+    carries = [_accumulate.init_carry(method, mixture, dtype, good_k, d) for d in shards.devices]
 
-    buf_e = buf_d = None
+    bufs_e = bufs_d = None
     if pointwise:
-        buf_e = torch.zeros(n_chunks * chunk_size, dtype=dtype, device=device)
-        buf_d = torch.zeros(n_chunks * chunk_size, dtype=dtype, device=device)
+        bufs_e, bufs_d = shards.buffers(dtype), shards.buffers(dtype)
 
     if checkpoint_path is not None and checkpoint_every < 1:
         raise ValueError("checkpoint_every must be a positive chunk count")
@@ -202,51 +227,55 @@ def loo_streaming(
 
     start_chunk = 0
     if checkpoint_path is not None:
-        loaded = _checkpoint.load_checkpoint(checkpoint_path, geometry, device)
+        loaded = _checkpoint.load_checkpoint(checkpoint_path, geometry, shards.devices[0])
         if loaded is not None:
             start_chunk = loaded["chunk"]
-            carry = loaded["carry"]
+            carries[0] = loaded["carry"]  # the other shards' carries start afresh
             if pointwise:
-                buf_e, buf_d = loaded["buf_e"], loaded["buf_d"]
+                bufs_e = shards.split(loaded["buf_e"].cpu().numpy(), dtype)
+                bufs_d = shards.split(loaded["buf_d"].cpu().numpy(), dtype)
 
-    # One host loop of queued device work chained by the carry; no device
-    # value is read until the end (checkpoint saves aside).
-    make = _chunks.chunk_maker(log_lik_fn, chunk_size, n_obs, n_draws, dtype, device,
+    # One host loop of queued device work chained by the carries; no device
+    # value is read until the end (checkpoint saves aside).  Every shard of
+    # a chunk is queued on its device before the next chunk.
+    make = _chunks.chunk_maker(log_lik_fn, chunk_size, n_obs, n_draws, dtype, shards.devices,
                                "log_lik_fn")
     for c in range(start_chunk, n_chunks):
-        idx, valid = _chunks.chunk_indices(c, chunk_size, n_obs, device)
-        ll = make(c, idx)
-        if col_idx is not None:
-            ll = _chunks.gather_cols(ll, col_idx)
-        adj = None
-        if jacobian_fn is not None:
-            # adjustments arrive in scaled-elpd units; store them in raw elpd
-            # units so they fold into the standard sums (scale_value is one
-            # of {1, -1, -2}: the division is exact)
-            adj = _chunks.generate(jacobian_fn, idx, (chunk_size,), dtype, "jacobian_fn")
-            adj = adj / scale_value
-        if mixture:
-            carry, elpd_i, diag = _accumulate.mixture_chunk(ll, valid, carry, adj)
-        else:
-            carry, elpd_i, diag = _accumulate.accumulate_chunk(
-                ll, valid, carry, adj, method=method, tail_max=tail_max
-            )
-        if pointwise:
-            rows = slice(c * chunk_size, (c + 1) * chunk_size)
-            buf_e[rows] = elpd_i
-            buf_d[rows] = diag.to(dtype)
+        for j, _ in shards:
+            with shards.scope(j):
+                idx, valid = shards.indices(c, j)
+                ll = make(c, j, idx)
+                if col_idx is not None:
+                    ll = _chunks.gather_cols(ll, shards.on(col_idx, j))
+                adj = None
+                if jacobian_fn is not None:
+                    # adjustments arrive in scaled-elpd units; store them in raw
+                    # elpd units so they fold into the standard sums (scale_value
+                    # is one of {1, -1, -2}: the division is exact)
+                    adj = _chunks.generate(jacobian_fn, idx, (shards.rows,), dtype, "jacobian_fn")
+                    adj = adj / scale_value
+                if mixture:
+                    carries[j], elpd_i, diag = _accumulate.mixture_chunk(ll, valid, carries[j], adj)
+                else:
+                    carries[j], elpd_i, diag = _accumulate.accumulate_chunk(
+                        ll, valid, carries[j], adj, method=method, tail_max=tail_max
+                    )
+                del ll
+                if pointwise:
+                    bufs_e[j][shards.part(c)] = elpd_i
+                    bufs_d[j][shards.part(c)] = diag.to(dtype)
         if checkpoint_path is not None and (c + 1) % checkpoint_every == 0:
-            _checkpoint.save_checkpoint(checkpoint_path, geometry, c + 1, carry, buf_e, buf_d)
+            _save(checkpoint_path, geometry, c + 1, carries, shards, bufs_e, bufs_d)
         if on_chunk is not None:
             on_chunk(c + 1, n_chunks)
-    out = {k: v.item() for k, v in carry.items()}
+    out = _accumulate.combine_carries(carries)
     if checkpoint_path is not None:
         with contextlib.suppress(OSError):
             os.remove(checkpoint_path)
     elpd_i_host = diag_host = None
     if pointwise:
-        elpd_i_host = buf_e.cpu().numpy()[:n_obs]
-        diag_host = buf_d.cpu().numpy()[:n_obs]
+        elpd_i_host = shards.host(bufs_e)
+        diag_host = shards.host(bufs_d)
 
     if mixture:
         # elpd_i = log_norm - log_obs_i, so the sums close in terms of the

@@ -14,8 +14,9 @@ import torch
 from .._common import compute_device
 from ..loo_score import LooScoreResult, _crps_chunk, _estimates, _warn_high_k, draw_permutations
 from ..ops import tail_length
+from ..parallel.sharding import as_mesh
 from . import _chunks
-from .loo import _as_dtype, _check_stream_args
+from .loo import _as_dtype
 
 __all__ = ["loo_score_streaming"]
 
@@ -49,8 +50,8 @@ def loo_score_streaming(
     source included); ``y`` is the
     length-``n_obs`` observed vector.  The draw permutations pairing x with
     x2 are drawn once on the host from ``np.random.default_rng(seed)`` and
-    shared by every chunk, as :func:`loo_score` draws them.  ``mesh`` is not
-    supported (one device).
+    shared by every chunk, as :func:`loo_score` draws them.  Over a ``mesh``
+    each chunk's rows are dealt over its devices.
 
     Returns :class:`~pyloo_tpu_torch.loo_score.LooScoreResult` with the
     pointwise scores and Pareto k as ``(n_obs,)`` float64 arrays.
@@ -64,36 +65,39 @@ def loo_score_streaming(
     y = np.asarray(y).ravel()
     if len(y) != n_obs:
         raise ValueError(f"Length of y ({len(y)}) must match n_obs ({n_obs})")
-    _check_stream_args(mesh, "loo_score_streaming")
+    mesh = as_mesh(mesh, "loo_score_streaming")
 
     device = compute_device()
     dtype = _as_dtype(dtype)
     chunk_size, n_chunks = _chunks.resolve_chunk(
-        chunk_size, n_obs, n_draws, dtype, budget=SCORE_CHUNK_BUDGET
+        chunk_size, n_obs, n_draws, dtype, budget=SCORE_CHUNK_BUDGET, mesh=mesh
     )
+    shards = _chunks.Shards(mesh, chunk_size, n_chunks, n_obs, device)
     tail_max = tail_length(n_draws, reff)
-    perms = torch.from_numpy(draw_permutations(seed, permutations, n_draws)).to(device)
-    y_pad = torch.zeros(n_chunks * chunk_size, dtype=dtype, device=device)
-    y_pad[:n_obs] = torch.from_numpy(y.astype(np.float64)).to(device, dtype)
+    perms = torch.from_numpy(draw_permutations(seed, permutations, n_draws))
+    y_pad = np.zeros(n_chunks * chunk_size)
+    y_pad[:n_obs] = y.astype(np.float64)
+    ys = shards.split(y_pad, dtype)
 
     make_ll, make_x, make_x2 = (
-        _chunks.chunk_maker(fn, chunk_size, n_obs, n_draws, dtype, device, name)
+        _chunks.chunk_maker(fn, chunk_size, n_obs, n_draws, dtype, shards.devices, name)
         for fn, name in ((log_lik_fn, "log_lik_fn"), (x_fn, "x_fn"), (x2_fn, "x2_fn"))
     )
-    buf_s = torch.zeros(n_chunks * chunk_size, dtype=dtype, device=device)
-    buf_k = torch.zeros(n_chunks * chunk_size, dtype=dtype, device=device)
+    bufs_s, bufs_k = shards.buffers(dtype), shards.buffers(dtype)
     for c in range(n_chunks):
-        idx, _ = _chunks.chunk_indices(c, chunk_size, n_obs, device)
-        rows = slice(c * chunk_size, (c + 1) * chunk_size)
-        buf_s[rows], buf_k[rows] = _crps_chunk(
-            make_ll(c, idx), make_x(c, idx), make_x2(c, idx),
-            y_pad[rows], perms, tail_max=tail_max, scale=scale,
-        )
+        for j, _ in shards:
+            with shards.scope(j):
+                idx, _ = shards.indices(c, j)
+                rows = shards.part(c)
+                bufs_s[j][rows], bufs_k[j][rows] = _crps_chunk(
+                    make_ll(c, j, idx), make_x(c, j, idx), make_x2(c, j, idx),
+                    ys[j][rows], shards.on(perms, j), tail_max=tail_max, scale=scale,
+                )
         if on_chunk is not None:
             on_chunk(c + 1, n_chunks)
 
-    score_pw = buf_s.cpu().numpy().astype(np.float64)[:n_obs]
-    pareto_k = buf_k.cpu().numpy().astype(np.float64)[:n_obs]
+    score_pw = shards.host(bufs_s).astype(np.float64)
+    pareto_k = shards.host(bufs_k).astype(np.float64)
     result = LooScoreResult(estimates=_estimates(score_pw), pointwise=score_pw)
     _warn_high_k(result, pareto_k, n_draws)
     return result

@@ -16,14 +16,15 @@ import numpy as np
 import torch
 
 from .._common import compute_device, resolve_scale
-from ..base import ISMethod, _host
+from ..base import ISMethod
 from ..constants import EstimatorMethod
 from ..estimators import SubsampleIndices, subsample_indices
 from ..loo_approximate_posterior import _validated_resample_indices, _warn_non_psis
 from ..loo_subsample import _score_sampled, _subsample_result
 from ..ops.lse import logsumexp
+from ..parallel.sharding import as_mesh
 from . import _chunks
-from .loo import _as_dtype, _check_stream_args, loo_streaming
+from .loo import _as_dtype, loo_streaming
 
 __all__ = ["loo_subsample_streaming", "loo_approximate_posterior_streaming"]
 
@@ -64,7 +65,8 @@ def loo_subsample_streaming(
     or the source's ``gather_rows``), and the survey estimator (diff_srs /
     hh_pps / srs) gives the population elpd with a subsampling SE.  Pass
     ``elpd_loo_approximation`` (an ``(n_obs,)`` array) to skip the LPD pass.
-    ``mesh`` is not supported (one device).
+    Over a ``mesh`` the LPD pass deals each chunk's rows over its devices,
+    and the sampled rows are scored over it as :func:`loo` scores rows.
 
     Returns ELPDData with the same rows as :func:`pyloo_tpu_torch.loo_subsample`.
     For :func:`pyloo_tpu_torch.update_subsample`, the result keeps
@@ -86,7 +88,7 @@ def loo_subsample_streaming(
         raise ValueError("PSIS requires at least 2 draws per observation.")
     if n_obs < 1:
         raise ValueError("n_obs must be positive.")
-    _check_stream_args(mesh, "loo_subsample_streaming")
+    mesh = as_mesh(mesh, "loo_subsample_streaming")
     device = compute_device()
     dtype = _as_dtype(dtype)
 
@@ -107,7 +109,7 @@ def loo_subsample_streaming(
     else:
         raise TypeError("observations must be an integer or an array of integers")
 
-    chunk_size, n_chunks = _chunks.resolve_chunk(chunk_size, n_obs, n_draws, dtype)
+    chunk_size, n_chunks = _chunks.resolve_chunk(chunk_size, n_obs, n_draws, dtype, mesh=mesh)
 
     # -- cheap approximation for every observation (streamed LPD) ------------
     if elpd_loo_approximation is not None:
@@ -118,15 +120,16 @@ def loo_subsample_streaming(
                 f"got {elpd_loo_approx.shape[0]}"
             )
     else:
-        make = _chunks.chunk_maker(log_lik_fn, chunk_size, n_obs, n_draws, dtype, device,
-                                   "log_lik_fn")
-        buf = torch.zeros(n_chunks * chunk_size, dtype=dtype, device=device)
+        shards = _chunks.Shards(mesh, chunk_size, n_chunks, n_obs, device)
+        make = _chunks.chunk_maker(log_lik_fn, chunk_size, n_obs, n_draws, dtype,
+                                   shards.devices, "log_lik_fn")
+        bufs = shards.buffers(dtype)
         for c in range(n_chunks):
-            idx, _ = _chunks.chunk_indices(c, chunk_size, n_obs, device)
-            buf[c * chunk_size : (c + 1) * chunk_size] = logsumexp(
-                make(c, idx), dim=1, b_inv=n_draws
-            )
-        elpd_loo_approx = _host(buf).astype(np.float64)[:n_obs]
+            for j, _ in shards:
+                with shards.scope(j):
+                    idx, _ = shards.indices(c, j)
+                    bufs[j][shards.part(c)] = logsumexp(make(c, j, idx), dim=1, b_inv=n_draws)
+        elpd_loo_approx = shards.host(bufs).astype(np.float64)
 
     # -- draw the subsample ---------------------------------------------------
     if isinstance(observations, np.ndarray):
@@ -142,7 +145,7 @@ def loo_subsample_streaming(
 
     # -- exact float64 PSIS-LOO on the m sampled rows, and the estimates ------
     ll_sample = _sampled_rows(log_lik_fn, np.asarray(indices.idx), n_draws, device)
-    loo_lppd_i, diagnostic, p_loo_values = _score_sampled(ll_sample, reff, scale_value)
+    loo_lppd_i, diagnostic, p_loo_values = _score_sampled(ll_sample, reff, scale_value, mesh)
     del ll_sample
     loo_lppd_i_full = None
     if pointwise:
@@ -162,7 +165,7 @@ def loo_subsample_streaming(
     result.estimates.stream = dict(
         log_lik_fn=log_lik_fn, n_obs=n_obs, n_draws=n_draws,
         elpd_loo_approximation=elpd_loo_approx, reff=reff,
-        chunk_size=chunk_size, dtype=dtype,
+        chunk_size=chunk_size, dtype=dtype, mesh=mesh,
     )
     return result
 

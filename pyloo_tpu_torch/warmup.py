@@ -25,8 +25,9 @@ import torch
 
 from . import _build
 from ._common import compute_device
+from .parallel.sharding import as_mesh
 from .streaming._chunks import resolve_chunk
-from .streaming.loo import _as_dtype, _check_stream_args, loo_streaming
+from .streaming.loo import _as_dtype, loo_streaming
 
 __all__ = ["warmup"]
 
@@ -65,24 +66,25 @@ def warmup(
 
     Runs one synthetic chunk through :func:`pyloo_tpu_torch.loo_streaming`
     with exactly the chunk geometry a real ``(n_obs, n_draws)`` sweep would
-    resolve, on ``rcParams["device.device"]``.  On a CUDA device it first
-    loads the kernel library (:func:`pyloo_tpu_torch._build.load`), building
-    it from the package's sources if no library for them exists yet; in
-    float32 the chunk launches the fused prepass kernel.  The first real
-    call then pays neither the CUDA context, nor the build, nor the
-    allocator's first blocks.
+    resolve, on ``rcParams["device.device"]`` (over ``mesh``, on each of its
+    devices).  On a CUDA device in float32 it first loads the kernel library
+    (:func:`pyloo_tpu_torch._build.load`), building it from the package's
+    sources if no library for them exists yet, and the chunk launches the
+    fused prepass kernel; the float64 path uses no kernel of the library and
+    loads nothing.  The first real call then pays neither the CUDA context,
+    nor the build, nor the allocator's first blocks.
 
     The arguments are those of ``pyloo_tpu.warmup``: ``chunk_size`` (or the
     default geometry derived from ``n_obs``), ``dtype`` (or
     ``rcParams['device.precision']``), ``method``, ``reff``, ``pointwise``,
     ``mixture``; ``source=True`` runs the chunk through the disk-source path
-    (``loo_from_file`` / ``NpyLogLik``).  ``mesh`` other than None raises,
-    as in ``loo_streaming``.
+    (``loo_from_file`` / ``NpyLogLik``); ``mesh`` as in ``loo_streaming``.
 
     Returns a dict with the resolved geometry, the warmup wall time
     (``wall_s``) and ``compilation_cache``: True when the kernel library was
     loaded (already in this process, or from its hash-named file) rather
-    than compiled by this call; False on the CPU, which uses no library.
+    than compiled by this call; False when the warmed path uses no library
+    (on the CPU, or in float64).
     ``pyloo_tpu``'s key of that name says whether the persistent XLA cache
     is on.
 
@@ -91,14 +93,14 @@ def warmup(
     >>> pl.warmup(1_000_000, 4000, dtype=torch.float32)   # at service startup
     >>> pl.loo_streaming(my_log_lik, 1_000_000, 4000, dtype=torch.float32)
     """
-    _check_stream_args(mesh, "warmup")
+    mesh = as_mesh(mesh, "warmup")
     dtype = _as_dtype(dtype)
-    chunk_size, _ = resolve_chunk(chunk_size, n_obs, n_draws, dtype)
+    chunk_size, _ = resolve_chunk(chunk_size, n_obs, n_draws, dtype, mesh=mesh)
 
     t0 = time.perf_counter()
     device = compute_device()
     cached = False
-    if device.type == "cuda":
+    if device.type == "cuda" and dtype == torch.float32:  # float64 launches no kernel
         cached = _build.is_built()
         _build.load()
     if source:
@@ -121,6 +123,7 @@ def warmup(
             method=method,
             mixture=mixture,
             dtype=dtype,
+            mesh=mesh,
         )
     wall = time.perf_counter() - t0
     return {

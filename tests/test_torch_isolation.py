@@ -32,7 +32,8 @@ for name in ("base", "psis", "sis", "tis", "waic", "loo_i", "e_loo", "loo_predic
              "models", "models.wrapper", "models.hmc", "models.examples",
              "models.batched_refit", "helpers", "ops.moment_match", "split_moment_match",
              "loo_moment_match", "loo_kfold", "reloo", "models.nuts", "models.chees",
-             "models.advi", "models.laplace", "ops.nonfactor", "loo_nonfactor"):
+             "models.advi", "models.laplace", "ops.nonfactor", "loo_nonfactor",
+             "parallel", "parallel.sharding", "parallel.witness"):
     importlib.import_module("pyloo_tpu_torch." + name)
 
 # the bundled data lie inside the package
@@ -298,6 +299,15 @@ for call in (lambda: pl.from_netcdf(csv), lambda: pl.save_netcdf(idata, tmp / "x
         raise AssertionError("an optional dependency was found although it is blocked")
 res = pl.warmup(64, 20, chunk_size=32, dtype="float64")
 assert res["chunk_size"] == 32 and res["compilation_cache"] is False
+# the multi-device layer over a mesh of CPU shards, and the witness's census
+from pyloo_tpu_torch.parallel import Mesh, witness
+mesh_ll = torch.randn(300, 40, dtype=torch.float64) - 1.0
+meshed = pl.loo_streaming(lambda idx: mesh_ll[idx], 300, 40, chunk_size=256,
+                          mesh=Mesh(["cpu"] * 4), pointwise=True)
+alone = pl.loo_streaming(lambda idx: mesh_ll[idx], 300, 40, chunk_size=256, pointwise=True)
+assert (meshed.loo_i.values == alone.loo_i.values).all()
+witness.assert_scalar_only_transfers(witness.census_of(
+    [{"name": "Memcpy PtoP (Device -> Device)", "args": {"bytes": 8}}]))
 from pyloo_tpu_torch import profiling
 with profiling.trace(str(tmp / "trace")):
     with profiling.annotate("region"):

@@ -90,6 +90,23 @@ def test_loo_score_matches_pyloo_tpu(permutations, scale):
     assert_same_score(tres, jres)
 
 
+@pytest.mark.parametrize("kwargs", [dict(type="quantile", probs=0.5),
+                                    dict(type="quantile", probs=[0.25, 0.75]),
+                                    dict(type="sd")])
+def test_loo_score_forwards_its_keywords_to_both_expectations(kwargs):
+    # pyloo_tpu passes them to both e_loo calls: E|X-y| and E|X-X'| are
+    # weighted medians with type="quantile", probs=0.5
+    kw = dict(x_var="y", x2_var="y2", permutations=2, seed=6, pointwise=True, **kwargs)
+    jres, jmsg = _call(jpl.loo_score, JID, **kw)
+    tres, tmsg = _call(tpl.loo_score, TID, **kw)
+    assert tmsg == jmsg
+    assert_same_score(tres, jres)
+    with pytest.raises(TypeError, match="unexpected keyword"):
+        tpl.loo_score(TID, x_var="y", bogus=1)
+    with pytest.raises(ValueError, match="probs must be provided"):
+        tpl.loo_score(TID, x_var="y", type="quantile")
+
+
 def test_loo_score_default_x2_and_not_pointwise():
     kw = dict(x_var="y", permutations=2, seed=9, pointwise=False)
     jres, _ = _call(jpl.loo_score, JID, **kw)
@@ -213,7 +230,7 @@ def test_loo_score_streaming_validation():
         tpl.loo_score_streaming(*gens, Y, N, S, permutations=0)
     with pytest.raises(ValueError, match="at least 2 draws"):
         tpl.loo_score_streaming(*gens, Y, N, 1)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh must be a pyloo_tpu_torch.parallel.Mesh"):
         tpl.loo_score_streaming(*gens, Y, N, S, mesh=object())
     bad = lambda idx: torch.zeros(len(idx), S + 1, dtype=torch.float64)  # noqa: E731
     with pytest.raises(ValueError, match="x_fn returned shape"):

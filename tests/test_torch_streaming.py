@@ -193,7 +193,7 @@ def test_validation_errors():
         tpl.loo_streaming(torch_ll, N, S, scale="bogus")
     with pytest.raises(ValueError, match="checkpoint_every"):
         tpl.loo_streaming(torch_ll, N, S, checkpoint_path="x.npz", checkpoint_every=0)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh must be a pyloo_tpu_torch.parallel.Mesh"):
         tpl.loo_streaming(torch_ll, N, S, mesh=object())
 
     class Source:  # a disk chunk source with fewer rows than asked for
@@ -350,7 +350,7 @@ def test_waic_streaming_validation():
         tpl.waic_streaming(torch_ll, N, 1)
     with pytest.raises(ValueError, match="n_obs must be positive"):
         tpl.waic_streaming(torch_ll, 0, S)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh must be a pyloo_tpu_torch.parallel.Mesh"):
         tpl.waic_streaming(torch_ll, N, S, mesh=object())
 
 

@@ -119,7 +119,7 @@ def test_e_loo_streaming_default_chunk_and_validation():
         tpl.e_loo_streaming(_tgen(LL), _tgen(X), N, S, type="quantile", probs=[0.5, 1.0])
     with pytest.raises(ValueError, match="only valid"):
         tpl.e_loo_streaming(_tgen(LL), _tgen(X), N, S, probs=0.5)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh must be a pyloo_tpu_torch.parallel.Mesh"):
         tpl.e_loo_streaming(_tgen(LL), _tgen(X), N, S, mesh=object())
     with pytest.raises(ValueError, match="x_fn returned shape"):
         tpl.e_loo_streaming(_tgen(LL), _tgen(X[:, :10]), N, S)

@@ -340,5 +340,5 @@ def test_loo_subsample_streaming_float32_and_custom_approximation():
         tpl.loo_subsample_streaming(_tgen(), N, S, observations=N + 1)
     with pytest.raises(ValueError, match="Invalid estimator"):
         tpl.loo_subsample_streaming(_tgen(), N, S, 50, estimator="bogus")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh must be a pyloo_tpu_torch.parallel.Mesh"):
         tpl.loo_subsample_streaming(_tgen(), N, S, 50, mesh=object())

@@ -91,7 +91,7 @@ def test_loo_streaming_after_warmup_equals_one_without():
 
 
 def test_warmup_refuses_a_mesh_and_a_missing_card():
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh must be a pyloo_tpu_torch.parallel.Mesh"):
         tpl.warmup(100, 20, mesh=object())
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -101,6 +101,35 @@ def test_warmup_refuses_a_mesh_and_a_missing_card():
             tpl.warmup(100, 20)
     finally:
         tpl.rcParams["device.device"] = "cpu"
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_warmup_loads_the_kernel_library_only_for_float32(monkeypatch, dtype):
+    # a CUDA device as compute_device() reports it; the chunk itself is a stub
+    loads, calls = [], []
+    monkeypatch.setattr(twarm, "compute_device", lambda: torch.device("cuda"))
+    monkeypatch.setattr(twarm._build, "load", lambda: loads.append(1))
+    monkeypatch.setattr(twarm._build, "is_built", lambda: True)
+    monkeypatch.setattr(twarm, "loo_streaming", lambda *a, **k: calls.append(k["dtype"]))
+    res = tpl.warmup(1_000, 40, dtype=dtype)
+    assert calls == [getattr(torch, dtype)]
+    if dtype == "float64":  # the float64 path uses no kernel of the library
+        assert loads == [] and res["compilation_cache"] is False
+    else:
+        assert loads == [1] and res["compilation_cache"] is True
+
+
+def test_trace_writes_its_file_when_the_block_raises(tmp_path):
+    ll = torch.randn(64, 40, dtype=torch.float64)
+    with pytest.raises(ZeroDivisionError):
+        with tprof.trace(str(tmp_path)):
+            with tprof.annotate("before_the_fault"):
+                tpl.loo_streaming(lambda idx: ll[idx], 64, 40, chunk_size=32)
+            1 / 0
+    files = os.listdir(tmp_path)
+    assert len(files) == 1 and files[0].startswith(f"trace_{os.getpid()}_")
+    events = json.loads((tmp_path / files[0]).read_text())["traceEvents"]
+    assert any(e.get("name") == "before_the_fault" for e in events)
 
 
 def test_zero_source_reads_rows_as_pyloo_tpu():
