@@ -2937,8 +2937,83 @@ def phase_mesh(pl, smi: str, model, reff: float, phase5: dict, ll_cut) -> None:
               f" {', '.join(f'{w:.3f}' for w in walls['mesh'])} s, with no mesh"
               f" {', '.join(f'{w:.3f}' for w in walls['no mesh'])} s")
     pl.rcParams["device.precision"] = "float64"
+    phase_deep_tail(pl, mesh, ll_cut, model, turns)
     print(f"  time  phase 13 {time.perf_counter() - t_phase:.1f} s ({len(used)} card(s) used)",
           flush=True)
+
+
+def phase_deep_tail(pl, mesh, ll_cut, model, turns, sizes=(65_536, None)) -> None:
+    """13d: the float64 deep-tail guard over the mesh.  Row 5 of phase 6's
+    cut becomes a t(2) row whose tail lies far below e^-60, which sends its
+    decision group to the signed-log fit.  ``pyloo_tpu``'s group is the
+    whole call over a mesh and, with no mesh, each of its chunks of 67,108
+    rows: at 65,536 rows the two are one group, and the call over the mesh
+    equals the one with no mesh bit for bit; at 262,144 rows they are equal
+    on the deep row's group, rows 0 to 67,107, and part elsewhere.  Each
+    call's host reads of the guard are counted (one a call), and the calls
+    with and without the deep row are timed in turns."""
+    import numpy as np
+
+    from pyloo_tpu_torch.ops import guard
+    from pyloo_tpu_torch.parallel import Mesh, sharding
+
+    reads = [0]
+    real_read = guard.host_read
+
+    def counted(flags):
+        reads[0] += 1
+        return real_read(flags)
+
+    deep_row, s = 5, ll_cut.shape[0] * ll_cut.shape[1]
+    saved = ll_cut[:, :, deep_row].copy()
+    t2 = np.random.default_rng(8).standard_t(2, size=saved.shape) * 8.0 - 30.0
+    guard.host_read = counted
+    try:
+        for n_rows in (n or ll_cut.shape[2] for n in sizes):
+            group = sharding.guard_groups(n_rows, s, 8, None)[0][1]  # the deep row's
+            for deep in (False, True):
+                ll_cut[:, :, deep_row] = t2 if deep else saved
+                idata = pl.from_dict(posterior={"beta": model[2].cpu().numpy()},
+                                     log_likelihood={"y": np.ascontiguousarray(
+                                         ll_cut[:, :, :n_rows])})
+                counts = {}
+
+                def over(one_mesh, idata=idata, counts=counts):
+                    reads[0] = 0
+                    with default_mesh_of(one_mesh), warnings_quiet():
+                        out = pl.loo(idata, pointwise=True)
+                    counts.setdefault(one_mesh is mesh, reads[0])
+                    return out
+
+                over(mesh)  # untimed: this data's first call
+                counts.clear()
+                got, walls = turns(lambda: over(Mesh(["cuda:0"])), lambda: over(mesh))
+                a, b = got["mesh"][0], got["no mesh"][0]
+                dk = np.abs(a.pareto_k.values - b.pareto_k.values)
+                same = (np.array_equal(a.loo_i.values, b.loo_i.values)
+                        and np.array_equal(a.pareto_k.values, b.pareto_k.values))
+                if n_rows > group and deep:
+                    ok = (np.array_equal(a.pareto_k.values[:group], b.pareto_k.values[:group])
+                          and 0 < dk[group:].max() < 1e-9)
+                    want = (f"equal on the deep row's group, rows 0 to {group - 1}, and apart"
+                            " elsewhere (another branch), by less than 1e-9")
+                else:
+                    ok, want = same, "equal bit for bit"
+                case = "one deep row" if deep else "no deep row"
+                print(f"  time  13d loo() float64, {n_rows} rows, {case}"
+                      f" (no mesh, mesh, mesh, no mesh): over the mesh"
+                      f" {', '.join(f'{w:.3f}' for w in walls['mesh'])} s, with no mesh"
+                      f" {', '.join(f'{w:.3f}' for w in walls['no mesh'])} s", flush=True)
+                check(ok and counts == {True: 1, False: 1},
+                      f"13d: loo() float64 on {n_rows} rows with"
+                      f" {'a' if deep else 'no'} deep-tail row: over the mesh and with no mesh"
+                      f" {want} (max |d k| {dk.max():.3g}, elpd_loo {a['elpd_loo']!r} against"
+                      f" {b['elpd_loo']!r}); the guard's host reads a call: {counts[True]} over"
+                      f" the mesh of {mesh.size} shards, {counts[False]} with no mesh")
+                del idata, got, a, b
+    finally:
+        ll_cut[:, :, deep_row] = saved
+        guard.host_read = real_read
 
 
 def phase_mesh_alone() -> int:

@@ -166,6 +166,11 @@ def _pareto_section(data):
     return "", None
 
 
+# what an attribute that a result of another kind sets reads on a plain
+# loo() result, as in pyloo_tpu (elpd.py:404-442): no groups, PSIS, no folds
+_ATTR_DEFAULTS = {"n_groups": None, "method": "psis", "K": None, "stratified": False}
+
+
 class ELPDData:
     """Expected log pointwise predictive density results.
 
@@ -198,6 +203,8 @@ class ELPDData:
         rows = self.__dict__.get("_rows", {})
         if name in rows:
             return rows[name]
+        if name in _ATTR_DEFAULTS:
+            return _ATTR_DEFAULTS[name]
         raise AttributeError(name)
 
     def __setattr__(self, name, value):

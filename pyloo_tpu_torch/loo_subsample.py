@@ -273,13 +273,15 @@ def loo_subsample(
     return result
 
 
-def _score_sampled(ll_sample, reff, scale_value, mesh=None):
+def _score_sampled(ll_sample, reff, scale_value, mesh=None, decide_over="chunks"):
     """Exact PSIS-LOO of the ``(m, S)`` sampled rows on the device (over
     ``mesh``, or the default one): the scaled pointwise elpd, the Pareto k
-    and the variance over draws, on the host."""
+    and the variance over draws, on the host.  ``decide_over`` is
+    ``apply_rowwise``'s: ``"call"`` for the streaming form, whose rows
+    ``pyloo_tpu`` scores in one call (``streaming.py:979``)."""
     m_tail = tail_length(ll_sample.shape[1], reff)
     elpd_sample, diagnostic, _ = apply_rowwise(
-        lambda b: loo_scores_psis(b, m_tail), ll_sample, mesh=mesh
+        lambda b: loo_scores_psis(b, m_tail), ll_sample, mesh=mesh, decide_over=decide_over
     )
     p_loo_values = _host(ll_sample.var(dim=1, correction=0))  # var over draws per sampled obs
     return scale_value * _host(elpd_sample), _host(diagnostic), p_loo_values

@@ -28,6 +28,7 @@ import math
 
 import torch
 
+from .guard import by_branch, deep_rows
 from .lse import logsumexp
 from .psis import (
     _LINEAR_FIT_MIN_LOG_QUART,
@@ -54,6 +55,51 @@ __all__ = [
     "mixture_scores",
     "waic_scores",
 ]
+
+
+def _log_domain_smooth(tail_vals, xcutoff, slot_valid, n_tail, q_desc, log1m_p):
+    """The tail's fit and smoothed values in the log domain end to end:
+    float32's only option (linear weights underflow below e^-88), and
+    float64's deep-tail branch.  Returns ``(k, smoothed, sigma > 0)``."""
+    eps = torch.finfo(tail_vals.dtype).eps
+    gap = torch.clamp_max(xcutoff[:, None] - tail_vals, 0.0)
+    log_exceed = torch.where(slot_valid, tail_vals + _log1mexp(gap), -math.inf)
+    log_quart = torch.gather(log_exceed, 1, q_desc)[:, 0]
+    k, sign_sigma, log_sigma = _gpdfit_batch(
+        log_exceed, n_tail, log_quart=log_quart, log_last=log_exceed[:, 0]
+    )
+    u = -k[:, None] * log1m_p
+    abs_u = torch.abs(u)
+    log_abs_expm1 = torch.where(u >= 0, u, 0.0) + _log1mexp(-abs_u)
+    log_q = torch.where(
+        torch.abs(k)[:, None] < eps,
+        torch.log(-log1m_p),
+        log_abs_expm1 - torch.log(torch.abs(k))[:, None],
+    )
+    smoothed = torch.logaddexp(log_sigma[:, None] + log_q, xcutoff[:, None])
+    smoothed = torch.clamp_max(smoothed, 0.0)  # truncate weights at exp(0)
+    return k, smoothed, sign_sigma > 0
+
+
+def _linear_smooth(tail_vals, xcutoff, slot_valid, n_tail, q_desc, log1m_p):
+    """Reference-verbatim linear pipeline (psis.py:138-157): exceedances
+    exp(x_tail) - exp(cutoff), linear fit, linear gpinv, one closing log."""
+    eps = torch.finfo(tail_vals.dtype).eps
+    nf = n_tail.to(tail_vals.dtype)
+    expxcutoff = torch.exp(xcutoff)
+    y = torch.where(slot_valid, torch.exp(tail_vals) - expxcutoff[:, None], 0.0)
+    y_quart = torch.gather(y, 1, q_desc)[:, 0]
+    k, sigma = _gpdfit_from_y(y, nf, y_quart, y[:, 0])
+    # sigma/k as one per-row factor, in pyloo_tpu's order
+    sig_over_k = sigma / torch.where(k == 0, 1.0, k)
+    q_lin = torch.where(
+        torch.abs(k)[:, None] < eps,
+        sigma[:, None] * -log1m_p,
+        sig_over_k[:, None] * torch.expm1(-k[:, None] * log1m_p),
+    )
+    smoothed = torch.clamp_max(torch.log(q_lin + expxcutoff[:, None]), 0.0)
+    return k, smoothed, sigma > 0
+
 
 def _psis_tail_scores(tail_vals, xcutoff, log_ntl, C, S: int, *, exact: bool):
     """GPD fit + smoothing + elpd reductions over the compacted tail.
@@ -95,7 +141,6 @@ def _psis_tail_scores(tail_vals, xcutoff, log_ntl, C, S: int, *, exact: bool):
     # ascending index q_idx maps to descending index n - 1 - q_idx
     q_idx = torch.clamp((n_tail + 2) // 4 - 1, 0, M - 1)
     q_desc = torch.clamp(n_tail - 1 - q_idx, 0, M - 1).long()[:, None]
-    eps = torch.finfo(dtype).eps
     nf_safe = torch.where(nf == 0, 1.0, nf)
     # 1 - p_d == (slot + 0.5)/n exactly, so log1p(-p) = log(slot + 0.5) - log(n);
     # invalid slots keep a p -> 0.5 pin
@@ -106,56 +151,20 @@ def _psis_tail_scores(tail_vals, xcutoff, log_ntl, C, S: int, *, exact: bool):
         math.log(0.5),
     )
 
-    def log_domain_smooth():
-        # log domain end to end: float32's only option (linear weights
-        # underflow below e^-88), and float64's deep-tail branch
-        gap = torch.clamp_max(xcutoff[:, None] - tail_vals, 0.0)
-        log_exceed = torch.where(slot_valid, tail_vals + _log1mexp(gap), -math.inf)
-        log_quart = torch.gather(log_exceed, 1, q_desc)[:, 0]
-        k, sign_sigma, log_sigma = _gpdfit_batch(
-            log_exceed, n_tail, log_quart=log_quart, log_last=log_exceed[:, 0]
-        )
-        u = -k[:, None] * log1m_p
-        abs_u = torch.abs(u)
-        log_abs_expm1 = torch.where(u >= 0, u, 0.0) + _log1mexp(-abs_u)
-        log_q = torch.where(
-            torch.abs(k)[:, None] < eps,
-            torch.log(-log1m_p),
-            log_abs_expm1 - torch.log(torch.abs(k))[:, None],
-        )
-        smoothed = torch.logaddexp(log_sigma[:, None] + log_q, xcutoff[:, None])
-        smoothed = torch.clamp_max(smoothed, 0.0)  # truncate weights at exp(0)
-        return k, smoothed, sign_sigma > 0
-
-    def linear_smooth():
-        # reference-verbatim linear pipeline (psis.py:138-157): exceedances
-        # exp(x_tail) - exp(cutoff), linear fit, linear gpinv, one closing log
-        expxcutoff = torch.exp(xcutoff)
-        y = torch.where(slot_valid, torch.exp(tail_vals) - expxcutoff[:, None], 0.0)
-        y_quart = torch.gather(y, 1, q_desc)[:, 0]
-        k, sigma = _gpdfit_from_y(y, nf, y_quart, y[:, 0])
-        # sigma/k as one per-row factor, in pyloo_tpu's order
-        sig_over_k = sigma / torch.where(k == 0, 1.0, k)
-        q_lin = torch.where(
-            torch.abs(k)[:, None] < eps,
-            sigma[:, None] * -log1m_p,
-            sig_over_k[:, None] * torch.expm1(-k[:, None] * log1m_p),
-        )
-        smoothed = torch.clamp_max(torch.log(q_lin + expxcutoff[:, None]), 0.0)
-        return k, smoothed, sigma > 0
-
+    rows = (tail_vals, xcutoff, slot_valid, n_tail, q_desc, log1m_p)
     if dtype == torch.float64:
-        # Deep-tail guard, a rule over the whole batch (one host sync): when a
-        # row's quartile exceedance sits below e^-60 the batch takes the
-        # signed-log fit, which agrees with the linear one to ~1e-14 where
-        # both are defined.  Rows with <= 4 exceedances never smooth.
+        # Deep-tail guard: where a row's quartile exceedance sits below e^-60
+        # the rows of its decision group take the signed-log fit, which
+        # agrees with the linear one to ~1e-14 where both are defined.  Rows
+        # with <= 4 exceedances never smooth.
         q_tail = torch.gather(tail_vals, 1, q_desc)[:, 0]
         log_quart_row = q_tail + _log1mexp(torch.clamp_max(xcutoff - q_tail, 0.0))
         in_range = (n_tail <= 4) | (log_quart_row >= _LINEAR_FIT_MIN_LOG_QUART)
-        smooth = linear_smooth if bool(in_range.all()) else log_domain_smooth
-        k, smoothed, sigma_pos = smooth()
+        k, smoothed, sigma_pos = by_branch(
+            deep_rows(in_range), _linear_smooth, _log_domain_smooth, *rows
+        )
     else:
-        k, smoothed, sigma_pos = log_domain_smooth()
+        k, smoothed, sigma_pos = _log_domain_smooth(*rows)
 
     would_smooth = (n_tail > 4) & torch.isfinite(k)
     degenerate = would_smooth & ~sigma_pos

@@ -32,6 +32,7 @@ import math
 import torch
 
 from ..parallel.sharding import device_scope
+from .guard import per_row
 from .psis import psislw_batch
 
 __all__ = [
@@ -192,10 +193,11 @@ class _Lanes:
             log_liki_new = self.log_lik_col_fn(new_upars, self.obs_idx)
             lr = -log_liki_new + log_prob_new - self.orig_log_prob[None, :]
             lr = torch.where(torch.isnan(lr), -math.inf, lr)
-            lwi_new, ki_new = psislw_batch(lr, self.tail_max)
             full_lr = log_prob_new - self.orig_log_prob[None, :]
             full_lr = torch.where(torch.isnan(full_lr), -math.inf, full_lr)
-            _, kfi_new = psislw_batch(full_lr, self.tail_max)
+            with per_row():  # a lane's float64 guard is its own, as under jax.vmap
+                lwi_new, ki_new = psislw_batch(lr, self.tail_max)
+                _, kfi_new = psislw_batch(full_lr, self.tail_max)
 
             # NaN candidates lose (host: skip); inactive lanes keep their state
             accept = active & (ki_new < st["ki"])
@@ -291,7 +293,9 @@ def batched_moment_match(
 
     The loop reads one flag on the host a pass (whether any lane is still
     active): at most ``max_iters + 1`` reads, since an active lane has
-    accepted at least one transform in each earlier pass.  Sharded over
+    accepted at least one transform in each earlier pass.  In float64 each
+    re-fit also reads its lanes' deep-tail flags, once (each lane takes its
+    own branch of the guard, as under ``jax.vmap``).  Sharded over
     devices, the lanes are sets of their own run by :func:`run_lanes`.
     """
     lanes = _Lanes(upars, obs_idx, orig_log_prob, log_liki0, lwi0, ki0, k_threshold,

@@ -28,6 +28,7 @@ import math
 
 import torch
 
+from .guard import by_branch, deep_rows
 from .lse import logsumexp
 from .selection import topk_with_idx
 from .topk import _CUTOFF_FLOOR
@@ -378,6 +379,11 @@ def _linear_fit_close(y, nf, b_post):
 _LINEAR_FIT_MIN_LOG_QUART = -60.0
 
 
+def _linear_fit(log_ary, n, log_quart, log_last):
+    y, nf, b, grid_valid = _linear_candidate_grid(log_ary, n, log_quart, log_last)
+    return _linear_fit_close(y, nf, _linear_b_post(y, nf, b, grid_valid))
+
+
 def _gpdfit_batch_linear(log_ary, n, log_quart=None, log_last=None):
     """Reference-verbatim Zhang-Stephens fit in the linear domain (float64).
 
@@ -386,9 +392,10 @@ def _gpdfit_batch_linear(log_ary, n, log_quart=None, log_last=None):
     signature and returns as :func:`_gpdfit_batch`.
 
     Deep tails (a quartile exceedance below ``e**-60`` on a row with more
-    than 4 exceedances) send the *whole batch* to the signed-log fit, which
-    agrees with the linear one to ~1e-14 where both are defined: a rule over
-    the batch, as in ``pyloo_tpu``, read on the host once per call.
+    than 4 exceedances) send the rows of their decision group to the
+    signed-log fit, which agrees with the linear one to ~1e-14 where both
+    are defined: ``pyloo_tpu``'s rule over its batch, here over the group
+    :mod:`.guard` says.
     """
     M = log_ary.shape[1]
     if log_quart is None:
@@ -398,10 +405,8 @@ def _gpdfit_batch_linear(log_ary, n, log_quart=None, log_last=None):
     # rows with <= 4 exceedances never smooth and may carry -inf anchors:
     # they do not force the signed-log fit; NaN anchors compare False and do
     in_range = (n <= 4) | (log_quart >= _LINEAR_FIT_MIN_LOG_QUART)
-    if bool(in_range.all()):
-        y, nf, b, grid_valid = _linear_candidate_grid(log_ary, n, log_quart, log_last)
-        return _linear_fit_close(y, nf, _linear_b_post(y, nf, b, grid_valid))
-    return _gpdfit_batch(log_ary, n, log_quart=log_quart, log_last=log_last)
+    return by_branch(deep_rows(in_range), _linear_fit, _gpdfit_batch,
+                     log_ary, n, log_quart, log_last)
 
 
 def _gpdfit_dispatch(log_exceed, n_tail, log_quart, log_last):

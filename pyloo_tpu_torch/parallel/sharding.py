@@ -9,8 +9,8 @@ rows; only per-row outputs and scalars come back.  The draws of
 ``loo_nonfactor`` and the lanes of batched moment matching are sharded the
 same way by their modules.
 
-The module imports only torch, so a copy of another version of it loads on
-its own (``tools/rowwise_pair.py``).
+The module imports torch and the float64 guard of ``ops`` only, so a copy of
+another version of it loads beside this package (``tools/rowwise_pair.py``).
 """
 
 from __future__ import annotations
@@ -20,8 +20,10 @@ from typing import Callable, Sequence
 
 import torch
 
+from ..ops.guard import run_decided
+
 __all__ = ["Mesh", "obs_mesh", "default_mesh", "as_mesh", "device_scope", "shard_bounds",
-           "apply_rowwise"]
+           "guard_groups", "apply_rowwise"]
 
 # Device-memory budget of one scorer call, input AND temporaries.  A scorer
 # holds up to about _LIVE_ROW_BUFFERS full-width (chunk, S) buffers at once
@@ -32,6 +34,10 @@ __all__ = ["Mesh", "obs_mesh", "default_mesh", "as_mesh", "device_scope", "shard
 # says how many more with ``extra_buffers``.  The budget is per device.
 _DEFAULT_CHUNK_BYTES = 8 << 30
 _LIVE_ROW_BUFFERS = 4
+
+# pyloo_tpu's byte budget of one chunk of rows with no mesh (its
+# _DEFAULT_CHUNK_BYTES): its chunks are the float64 deep-tail guard's batches
+_GUARD_CHUNK_BYTES = 2 << 30
 
 
 class Mesh:
@@ -134,21 +140,21 @@ def chunk_rows(
     return 1 << (rows.bit_length() - 1)
 
 
-def _chunked(kernel: Callable, inputs: tuple, chunk_bytes: int, extra_buffers: int):
-    """The kernel over byte-budgeted chunks of rows on one device."""
-    B, S = inputs[0].shape[:2]
-    chunk = chunk_rows(S, inputs[0].element_size(), chunk_bytes, extra_buffers)
-    if chunk >= B:
-        return tuple(kernel(*inputs))
-    outs = None
-    for start in range(0, B, chunk):
-        piece = kernel(*(t[start : start + chunk] for t in inputs))
-        if outs is None:
-            outs = tuple(p.new_empty((B,) + p.shape[1:]) for p in piece)
-        for out, p in zip(outs, piece):
-            out[start : start + chunk] = p
-        del piece
-    return outs
+def guard_groups(b: int, s: int, itemsize: int, mesh: Mesh | None) -> list:
+    """``pyloo_tpu``'s decision groups of the float64 deep-tail guard over
+    ``b`` rows of ``apply_rowwise``, as ``(start, stop)`` ranges.
+
+    Over a mesh ``pyloo_tpu`` makes one sharded call, and GSPMD turns the
+    guard's ``jnp.all`` into a reduction across the mesh: one group, the
+    whole call (its zero padding rows switch nothing).  With no mesh it
+    runs chunks of ``_GUARD_CHUNK_BYTES // (S * itemsize)`` rows, each a
+    call of its own (``pyloo_tpu/parallel/sharding.py:73-101``).  The port's
+    own chunks and shards do not change the groups.
+    """
+    if mesh is not None:
+        return [(0, b)]
+    chunk = max(1, _GUARD_CHUNK_BYTES // max(s * itemsize, 1))
+    return [(a, min(a + chunk, b)) for a in range(0, b, chunk)]
 
 
 def apply_rowwise(
@@ -158,6 +164,7 @@ def apply_rowwise(
     mesh: Mesh | None = None,
     chunk_bytes: int = _DEFAULT_CHUNK_BYTES,
     extra_buffers: int = 0,
+    decide_over: str = "chunks",
 ):
     """Run a row-parallel function over (B, S) tensors, on every device of a
     mesh, in byte-budgeted chunks on each.
@@ -167,44 +174,66 @@ def apply_rowwise(
     one ``(chunk, ...)`` block of each and returns a tuple of outputs whose
     leading dimension is the chunk size.  Chunks are views of the inputs, so
     only the function's temporaries are allocated per chunk.  With more than
-    one chunk each output is written into one tensor allocated for all of
-    the device's rows: an output as wide as the input, such as a weight
-    matrix, is never held as pieces and as their concatenation at once.
-    ``extra_buffers`` counts the full-width ``(chunk, S)`` buffers the
-    function holds beyond the scorers' ``_LIVE_ROW_BUFFERS``, a wide output
-    among them.
+    one chunk each output is written into one tensor allocated for all
+    rows: an output as wide as the input, such as a weight matrix, is never
+    held as pieces and as their concatenation at once.  ``extra_buffers``
+    counts the full-width ``(chunk, S)`` buffers the function holds beyond
+    the scorers' ``_LIVE_ROW_BUFFERS``, a wide output among them.
 
     ``mesh`` None takes :func:`obs_mesh`, as ``pyloo_tpu`` does, when the
     inputs lie on the kind of device it spans.  Over a mesh, B is padded to a
     multiple of its size and each device gets its block of rows
     (:func:`shard_bounds`; the padding is never computed: the last blocks
-    are short), copied there and run
-    under its device's context; every device is queued before anything is
-    read back.  The outputs are gathered in row order on the inputs' device.
-    A row's outputs are the same computation as with no mesh, on another
-    device; only a function with a rule over its whole batch (the float64
-    deep-tail guard) may take another branch for a block than for the batch.
+    are short), each chunk copied there and run under its device's context;
+    every device is queued before anything is read back.  The outputs are
+    gathered in row order on the inputs' device.
+
+    The float64 fits inside ``kernel`` decide the deep-tail branch over
+    ``pyloo_tpu``'s batches (:mod:`pyloo_tpu_torch.ops.guard`):
+    :func:`guard_groups` for ``decide_over="chunks"``, the whole call for
+    ``"call"`` (a function ``pyloo_tpu`` runs as one program over all
+    rows).  With no deep-tail row a float64 call reads the host once, after
+    every chunk of every device is queued; a row's outputs are then the
+    same computation with or without a mesh, on another device.
     """
     inputs = tuple(rows) if isinstance(rows, (tuple, list)) else (rows,)
     if mesh is None:
         mesh = default_mesh(inputs[0].device)
-    if mesh is None:
-        return _chunked(kernel, inputs, chunk_bytes, extra_buffers)
-
-    home = inputs[0].device
-    B = inputs[0].shape[0]
+    B, S = inputs[0].shape[:2]
     if B == 0:
-        return _chunked(kernel, inputs, chunk_bytes, extra_buffers)
-    pieces = []
-    for device, (start, stop) in zip(mesh.devices, shard_bounds(B, mesh.size)):
-        if start == stop:
-            continue
-        with device_scope(device):
-            block = tuple(t[start:stop].to(device, non_blocking=True) for t in inputs)
-            pieces.append((start, stop, _chunked(kernel, block, chunk_bytes, extra_buffers)))
-            del block
-    outs = tuple(p.new_empty((B,) + p.shape[1:], device=home) for p in pieces[0][2])
-    for start, stop, piece in pieces:
-        for out, p in zip(outs, piece):
+        return tuple(kernel(*inputs))
+    home = inputs[0].device
+    itemsize = inputs[0].element_size()
+    chunk = chunk_rows(S, itemsize, chunk_bytes, extra_buffers)
+    if mesh is None:
+        shards = [(home, 0, B)]
+    else:
+        shards = [(d, start, stop) for d, (start, stop) in
+                  zip(mesh.devices, shard_bounds(B, mesh.size)) if start < stop]
+    groups = [(0, B)] if decide_over == "call" else guard_groups(B, S, itemsize, mesh)
+
+    def pieces():
+        for device, first, last in shards:
+            for start in range(first, last, chunk):
+                stop = min(start + chunk, last)
+
+                def run(device=device, start=start, stop=stop):
+                    with device_scope(device):
+                        block = (t[start:stop].to(device, non_blocking=True) for t in inputs)
+                        return tuple(kernel(*block))
+
+                yield start, stop, run
+
+    outs = []
+
+    def sink(start, stop, got):
+        if start == 0 and stop == B and got[0].device == home:
+            outs[:] = got  # one piece: its outputs as they are
+            return
+        if not outs:
+            outs.extend(p.new_empty((B,) + p.shape[1:], device=home) for p in got)
+        for out, p in zip(outs, got):
             out[start:stop] = p
-    return outs
+
+    run_decided(pieces(), groups, sink)
+    return tuple(outs)

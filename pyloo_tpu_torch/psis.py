@@ -210,8 +210,10 @@ def psislw_compact(log_weights, reff: float = 1.0) -> CompactWeights:
             f" got {n_samples}"
         )
     m_tail = tail_length(n_samples, reff)
+    # pyloo_tpu smooths every row in one call (psis.py:216): one decision group
     log_norm, tail_idx, tail_lw, xcutoff, khat = apply_rowwise(
-        lambda block: psislw_compact_batch(block, m_tail), matrix, extra_buffers=1
+        lambda block: psislw_compact_batch(block, m_tail), matrix, extra_buffers=1,
+        decide_over="call",
     )
     return CompactWeights(
         _host(log_norm),

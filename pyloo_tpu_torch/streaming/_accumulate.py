@@ -4,7 +4,8 @@ Counterpart of ``_kernel_for``, ``_accum_after_scores``,
 ``_accumulate_chunk`` and ``_mixture_chunk`` in ``pyloo_tpu/streaming.py``.
 The carry is a dict of 0-d tensors on the device; nothing here reads a
 device value on the host, so chunks queue on the card back to back (the
-float64 PSIS scorer's deep-tail guard syncs once a chunk, as in ``loo()``).
+float64 PSIS scorer's deep-tail guard reads its flags once a chunk, after
+the chunk's shards are queued, in ``_chunks.Shards.decided``).
 Running sums are float64 whatever the computation dtype: float32 sums lose
 about 7 digits over 1e7 observations.  Over a mesh each device keeps a carry
 of its own, and :func:`combine_carries` makes them one on the host at the

@@ -26,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.guard import run_decided
 from ..parallel.sharding import Mesh, device_scope
 
 __all__ = ["resolve_chunk", "chunk_indices", "generate", "gather_cols", "is_chunk_source",
@@ -119,6 +120,34 @@ class Shards:
                            axis=1)
         flat = stacked.reshape((self.n_chunks * self.chunk_size,) + trailing)
         return flat[: self.n_obs if n_rows is None else n_rows]
+
+    def decided(self, work) -> list:
+        """Every shard's work on one chunk, its float64 fits deciding the
+        deep-tail branch over the whole chunk, ``pyloo_tpu``'s batch
+        (:func:`pyloo_tpu_torch.ops.guard.run_decided`).  ``work(j)``, called
+        under shard ``j``'s device, queues what runs once (the generator)
+        and returns a function that scores it, which may run twice; shard
+        ``j + 1`` is made after shard ``j`` is queued.  Returns the scores
+        in shard order."""
+        got = [None] * len(self.devices)
+
+        def pieces():
+            for j, _ in self:
+                with self.scope(j):
+                    score = work(j)
+
+                def run(j=j, score=score):
+                    with self.scope(j):
+                        return score()
+
+                yield j * self.rows, (j + 1) * self.rows, run
+                del score, run  # run_decided keeps what may run again
+
+        def sink(start, stop, out):
+            got[start // self.rows] = out
+
+        run_decided(pieces(), [(0, self.chunk_size)], sink)
+        return got
 
     def on(self, tensor: torch.Tensor, j: int) -> torch.Tensor:
         """A copy of ``tensor`` on shard ``j``'s device, made once a device."""

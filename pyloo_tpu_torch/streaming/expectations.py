@@ -123,14 +123,15 @@ def e_loo_streaming(
     bufs_v = shards.buffers(dtype, () if probs_tuple is None else (len(probs_tuple),))
     bufs_k = shards.buffers(dtype)
     for c in range(n_chunks):
-        for j, _ in shards:
+
+        def work(j, c=c):
+            idx, _ = shards.indices(c, j)
+            ll, x = make_ll(c, j, idx), make_x(c, j, idx)
+            return lambda: _eloo_chunk(ll, x, kind=type, tail_max=tail_max, probs=probs_tuple)
+
+        for j, (value, k) in enumerate(shards.decided(work)):
             with shards.scope(j):
-                idx, _ = shards.indices(c, j)
-                rows = shards.part(c)
-                bufs_v[j][rows], bufs_k[j][rows] = _eloo_chunk(
-                    make_ll(c, j, idx), make_x(c, j, idx), kind=type, tail_max=tail_max,
-                    probs=probs_tuple,
-                )
+                bufs_v[j][shards.part(c)], bufs_k[j][shards.part(c)] = value, k
         if on_chunk is not None:
             on_chunk(c + 1, n_chunks)
 

@@ -159,9 +159,9 @@ def loo_streaming(
     mesh : Mesh, optional
         :class:`pyloo_tpu_torch.parallel.Mesh` of devices; each chunk's rows
         are dealt over them in equal blocks, each scored on its device.
-        Per-row results equal the run with no mesh bit for bit but where a
-        float64 block takes the other branch of the deep-tail guard than
-        its chunk did.
+        Per-row results equal the run with no mesh bit for bit: the float64
+        deep-tail guard decides over the whole chunk, as ``pyloo_tpu``
+        does.
     checkpoint_path : str, optional
         Save the carry (and the pointwise buffers) to this file every
         ``checkpoint_every`` chunks, atomically; if the file exists and its
@@ -236,32 +236,35 @@ def loo_streaming(
                 bufs_d = shards.split(loaded["buf_d"].cpu().numpy(), dtype)
 
     # One host loop of queued device work chained by the carries; no device
-    # value is read until the end (checkpoint saves aside).  Every shard of
-    # a chunk is queued on its device before the next chunk.
+    # value is read until the end (checkpoint saves aside) but, in float64,
+    # the deep-tail guard's flags of each chunk, once, after every shard of
+    # the chunk is queued.  Every shard of a chunk is queued on its device
+    # before the next chunk.
     make = _chunks.chunk_maker(log_lik_fn, chunk_size, n_obs, n_draws, dtype, shards.devices,
                                "log_lik_fn")
     for c in range(start_chunk, n_chunks):
-        for j, _ in shards:
-            with shards.scope(j):
-                idx, valid = shards.indices(c, j)
-                ll = make(c, j, idx)
-                if col_idx is not None:
-                    ll = _chunks.gather_cols(ll, shards.on(col_idx, j))
-                adj = None
-                if jacobian_fn is not None:
-                    # adjustments arrive in scaled-elpd units; store them in raw
-                    # elpd units so they fold into the standard sums (scale_value
-                    # is one of {1, -1, -2}: the division is exact)
-                    adj = _chunks.generate(jacobian_fn, idx, (shards.rows,), dtype, "jacobian_fn")
-                    adj = adj / scale_value
-                if mixture:
-                    carries[j], elpd_i, diag = _accumulate.mixture_chunk(ll, valid, carries[j], adj)
-                else:
-                    carries[j], elpd_i, diag = _accumulate.accumulate_chunk(
-                        ll, valid, carries[j], adj, method=method, tail_max=tail_max
-                    )
-                del ll
-                if pointwise:
+
+        def work(j, c=c):
+            idx, valid = shards.indices(c, j)
+            ll = make(c, j, idx)
+            if col_idx is not None:
+                ll = _chunks.gather_cols(ll, shards.on(col_idx, j))
+            adj = None
+            if jacobian_fn is not None:
+                # adjustments arrive in scaled-elpd units; store them in raw
+                # elpd units so they fold into the standard sums (scale_value
+                # is one of {1, -1, -2}: the division is exact)
+                adj = _chunks.generate(jacobian_fn, idx, (shards.rows,), dtype, "jacobian_fn")
+                adj = adj / scale_value
+            carry = carries[j]
+            if mixture:
+                return lambda: _accumulate.mixture_chunk(ll, valid, carry, adj)
+            return lambda: _accumulate.accumulate_chunk(ll, valid, carry, adj, method=method,
+                                                        tail_max=tail_max)
+
+        for j, (carries[j], elpd_i, diag) in enumerate(shards.decided(work)):
+            if pointwise:
+                with shards.scope(j):
                     bufs_e[j][shards.part(c)] = elpd_i
                     bufs_d[j][shards.part(c)] = diag.to(dtype)
         if checkpoint_path is not None and (c + 1) % checkpoint_every == 0:

@@ -85,14 +85,16 @@ def loo_score_streaming(
     )
     bufs_s, bufs_k = shards.buffers(dtype), shards.buffers(dtype)
     for c in range(n_chunks):
-        for j, _ in shards:
+
+        def work(j, c=c):
+            idx, _ = shards.indices(c, j)
+            ll, x, x2 = make_ll(c, j, idx), make_x(c, j, idx), make_x2(c, j, idx)
+            y_j, perms_j = ys[j][shards.part(c)], shards.on(perms, j)
+            return lambda: _crps_chunk(ll, x, x2, y_j, perms_j, tail_max=tail_max, scale=scale)
+
+        for j, (score, k) in enumerate(shards.decided(work)):
             with shards.scope(j):
-                idx, _ = shards.indices(c, j)
-                rows = shards.part(c)
-                bufs_s[j][rows], bufs_k[j][rows] = _crps_chunk(
-                    make_ll(c, j, idx), make_x(c, j, idx), make_x2(c, j, idx),
-                    ys[j][rows], shards.on(perms, j), tail_max=tail_max, scale=scale,
-                )
+                bufs_s[j][shards.part(c)], bufs_k[j][shards.part(c)] = score, k
         if on_chunk is not None:
             on_chunk(c + 1, n_chunks)
 

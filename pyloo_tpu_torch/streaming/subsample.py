@@ -145,7 +145,9 @@ def loo_subsample_streaming(
 
     # -- exact float64 PSIS-LOO on the m sampled rows, and the estimates ------
     ll_sample = _sampled_rows(log_lik_fn, np.asarray(indices.idx), n_draws, device)
-    loo_lppd_i, diagnostic, p_loo_values = _score_sampled(ll_sample, reff, scale_value, mesh)
+    loo_lppd_i, diagnostic, p_loo_values = _score_sampled(
+        ll_sample, reff, scale_value, mesh, decide_over="call"
+    )
     del ll_sample
     loo_lppd_i_full = None
     if pointwise:

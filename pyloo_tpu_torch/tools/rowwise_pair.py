@@ -2,7 +2,8 @@
 
 Loads ``parallel/sharding.py`` of this package and another version of that
 file (``--other``, for instance ``git show REV:pyloo_tpu_torch/parallel/sharding.py``
-written to a file; the module imports only torch, so it loads alone) and
+written to a file, loaded as a module of this package's ``parallel`` so that
+its relative imports resolve here) and
 times ``apply_rowwise(lambda b: loo_scores_psis_fast(b, m_tail), matrix)``
 with each on the same ``(rows, S)`` float32 matrix on the card, in the order
 other, this, this, other after one warm-up call of each: a host clock around
@@ -28,7 +29,7 @@ from ._stages import card, rows
 
 
 def load_apply_rowwise(path: Path, name: str):
-    spec = importlib.util.spec_from_file_location(name, path)
+    spec = importlib.util.spec_from_file_location(f"pyloo_tpu_torch.parallel.{name}", path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module.apply_rowwise

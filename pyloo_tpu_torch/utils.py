@@ -1,9 +1,12 @@
 """Host-side substrate: ingestion, log-likelihood extraction, logsumexp.
 
 Counterpart of ``pyloo_tpu/utils.py`` (numpy only): ``from_dict``,
-``to_inference_data``, ``get_log_likelihood`` and the stable host
-``_logsumexp``.  ``to_inference_data`` routes file paths and foreign
-``InferenceData`` objects to :mod:`pyloo_tpu_torch.ingest`.
+``to_inference_data``, ``get_log_likelihood``, the stable host
+``_logsumexp``, ``reshape_draws`` and the reference's per-observation loop
+shims ``make_ufunc`` / ``wrap_xarray_ufunc`` (for user code written against
+the reference API; the library itself runs batched kernels).
+``to_inference_data`` routes file paths and foreign ``InferenceData``
+objects to :mod:`pyloo_tpu_torch.ingest`.
 """
 
 from __future__ import annotations
@@ -11,13 +14,21 @@ from __future__ import annotations
 import os
 import warnings
 from collections.abc import Sequence
-from typing import Any
+from typing import Any, Optional, Tuple
 
 import numpy as np
 
 from .containers import DataArray, Dataset, InferenceData
 
-__all__ = ["to_inference_data", "get_log_likelihood", "from_dict", "_logsumexp"]
+__all__ = [
+    "to_inference_data",
+    "get_log_likelihood",
+    "from_dict",
+    "reshape_draws",
+    "_logsumexp",
+    "wrap_xarray_ufunc",
+    "make_ufunc",
+]
 
 
 def from_dict(
@@ -169,6 +180,19 @@ def get_log_likelihood(idata: InferenceData, var_name=None, single_var=True):
         raise TypeError(f"No log likelihood data named {var_name} found") from err
 
 
+def reshape_draws(
+    x: np.ndarray, chain_ids: Optional[np.ndarray] = None
+) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+    """Reshape MCMC draws between (iter, chain, param) and matrix formats."""
+    if x.ndim == 3:
+        return x.reshape(-1, x.shape[2]), None
+    if x.ndim == 2 and chain_ids is not None:
+        n_chains = len(np.unique(chain_ids))
+        n_iter = len(x) // n_chains
+        return x.reshape(n_iter, n_chains, -1), chain_ids
+    return x, chain_ids
+
+
 def _logsumexp(ary, *, b=None, b_inv=None, axis=None, keepdims=False):
     """Numerically stable host logsumexp with optional scalar scaling.
 
@@ -218,3 +242,88 @@ def _reduced_shape(shape, axis, keepdims):
     if keepdims:
         return tuple(1 if i in axes else d for i, d in enumerate(shape))
     return tuple(d for i, d in enumerate(shape) if i not in axes)
+
+
+def make_ufunc(func, n_dims=1, n_output=1, n_input=1, ravel=True):
+    """Lift a 1-D function to loop over leading observation dimensions.
+
+    Compatibility shim for user code written against the reference API
+    (``pyloo/utils.py:82-183``); numpy on the host, one call a row.
+    """
+
+    def _ufunc(*args, **kwargs):
+        arys = args[:n_input]
+        lead = arys[-1].shape[:-n_dims]
+        outs = None
+        for idx in np.ndindex(lead):
+            rows = [a[idx].ravel() if ravel else a[idx] for a in arys]
+            res = func(*rows, *args[n_input:], **kwargs)
+            if n_output == 1:
+                res = (res,)
+            if outs is None:
+                outs = []
+                for r in res:
+                    r = np.asarray(r)
+                    outs.append(np.empty(lead + r.shape, dtype=r.dtype))
+            for o, r in zip(outs, res):
+                o[idx] = r
+        if outs is None:
+            outs = [np.empty(lead) for _ in range(n_output)]
+        return outs[0] if n_output == 1 else tuple(outs)
+
+    return _ufunc
+
+
+def wrap_xarray_ufunc(
+    ufunc,
+    *datasets,
+    ufunc_kwargs=None,
+    func_args=None,
+    func_kwargs=None,
+    input_core_dims=None,
+    output_core_dims=None,
+):
+    """Apply a 1-D function across observations of labeled arrays.
+
+    Compatibility shim over :func:`make_ufunc` for :class:`DataArray` inputs
+    whose sample dimension is the trailing core dim (reference
+    ``pyloo/utils.py:186-240``).
+    """
+    ufunc_kwargs = dict(ufunc_kwargs or {})
+    func_args = func_args or ()
+    func_kwargs = dict(func_kwargs or {})
+    func_kwargs.pop("out", None)
+    n_output = ufunc_kwargs.get("n_output", 1)
+    ufunc_kwargs.setdefault("n_input", len(datasets))
+
+    arrays = []
+    template = None
+    for d in datasets:
+        if isinstance(d, DataArray):
+            template = d
+            arrays.append(d.values)
+        else:
+            arrays.append(np.asarray(d))
+
+    looped = make_ufunc(
+        ufunc,
+        n_dims=ufunc_kwargs.get("n_dims", 1),
+        n_output=n_output,
+        n_input=ufunc_kwargs["n_input"],
+        ravel=ufunc_kwargs.get("ravel", True),
+    )
+    result = looped(*arrays, *func_args, **func_kwargs)
+    if n_output == 1:
+        result = (result,)
+
+    wrapped = []
+    out_dims = output_core_dims or [[] for _ in range(n_output)]
+    core_in = (input_core_dims or [["__sample__"]])[0]
+    for res, core in zip(result, out_dims):
+        if template is not None:
+            dims = tuple(d for d in template.dims if d not in core_in) + tuple(core)
+            coords = {d: template.coords[d] for d in dims if d in template.coords}
+            wrapped.append(DataArray(res, dims, coords))
+        else:
+            wrapped.append(res)
+    return wrapped[0] if n_output == 1 else tuple(wrapped)

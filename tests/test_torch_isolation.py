@@ -33,7 +33,7 @@ for name in ("base", "psis", "sis", "tis", "waic", "loo_i", "e_loo", "loo_predic
              "models.batched_refit", "helpers", "ops.moment_match", "split_moment_match",
              "loo_moment_match", "loo_kfold", "reloo", "models.nuts", "models.chees",
              "models.advi", "models.laplace", "ops.nonfactor", "loo_nonfactor",
-             "parallel", "parallel.sharding", "parallel.witness"):
+             "parallel", "parallel.sharding", "parallel.witness", "ops.guard"):
     importlib.import_module("pyloo_tpu_torch." + name)
 
 # the bundled data lie inside the package
@@ -395,3 +395,85 @@ def test_no_module_imports_pandas_numpyro_or_an_optional_package_at_load():
     assert offenders == []
     anywhere = re.compile(r"^\s*(import|from)\s+(jax|pandas|numpyro|pyloo_tpu)\b", re.MULTILINE)
     assert not anywhere.search((REPO / "chip_smoke.py").read_text())
+
+
+# Public names of pyloo_tpu's modules that the port leaves out, by module
+# ("*": every name of the module), each with its reason.
+NOT_PORTED = {
+    "ops.pallas_topk": {
+        "*": "the Pallas TPU kernels and their (8, 128) tile layout, tile_rows among them;"
+             " the CUDA kernels that replace them are ops.topk's",
+    },
+    "ops.loo_kernels": {
+        "loo_scores_psis_fast_tiled": "the float32 scorer over the TPU tile layout of"
+                                      " pallas_topk.tile_rows",
+    },
+    "ops.selection": {
+        "topk_hybrid_f64": "a float32-proxy selection for the TPU's emulated float64, rejected"
+                           " in pyloo_tpu itself (ops/loo_kernels.py:281)",
+    },
+    "parallel": {
+        "obs_sharding": "a jax.sharding.NamedSharding: the port's Mesh deals the rows itself",
+        "replicated_sharding": "a jax.sharding.NamedSharding: the port's Mesh deals the rows"
+                               " itself",
+    },
+    "parallel.sharding": {
+        "obs_sharding": "a jax.sharding.NamedSharding: the port's Mesh deals the rows itself",
+        "replicated_sharding": "a jax.sharding.NamedSharding: the port's Mesh deals the rows"
+                               " itself",
+    },
+    "parallel.witness": {
+        "collective_census": "reads the collectives of a compiled SPMD program; the port's"
+                             " transfer_census reads the copies a run made",
+        "assert_scalar_only_collectives": "over collective_census; the port's is"
+                                          " assert_scalar_only_transfers",
+        "compiled_flops": "XLA's FLOP count of a compiled program; an eager call has none"
+                          " (see the witness module's docstring)",
+    },
+}
+
+
+def _pyloo_tpu_modules():
+    """``(suffix, module)`` of every source module of pyloo_tpu with an ``__all__``."""
+    import importlib
+    import importlib.util
+    import pkgutil
+
+    import pyloo_tpu
+
+    for info in pkgutil.walk_packages(pyloo_tpu.__path__, "pyloo_tpu."):
+        if not importlib.util.find_spec(info.name).origin.endswith(".py"):
+            continue  # a built extension, not a module of the package's source
+        module = importlib.import_module(info.name)
+        if hasattr(module, "__all__"):
+            yield info.name[len("pyloo_tpu."):], module
+
+
+def test_every_module_of_pyloo_tpu_has_its_public_names_in_the_port():
+    import importlib
+
+    missing, excluded_but_present = [], []
+    for suffix, module in _pyloo_tpu_modules():
+        left_out = NOT_PORTED.get(suffix, {})
+        if "*" in left_out:
+            try:
+                importlib.import_module("pyloo_tpu_torch." + suffix)
+            except ModuleNotFoundError:
+                continue
+            excluded_but_present.append(suffix)
+            continue
+        port = importlib.import_module("pyloo_tpu_torch." + suffix)
+        exported = set(getattr(port, "__all__", ()))
+        for name in module.__all__:
+            here = name in exported and hasattr(port, name)
+            if name in left_out:
+                if here:
+                    excluded_but_present.append(f"{suffix}.{name}")
+            elif not here:
+                missing.append(f"{suffix}.{name}")
+    assert missing == []
+    assert excluded_but_present == []  # the list names exactly what is left out
+    seen = dict(_pyloo_tpu_modules())
+    for suffix, names in NOT_PORTED.items():
+        assert suffix in seen
+        assert all(name == "*" or name in seen[suffix].__all__ for name in names)

@@ -238,7 +238,7 @@ def test_lazy_stack_goes_through_the_device_swap(monkeypatch, precision):
 def test_apply_rowwise_chunks_agree_with_one_chunk():
     rng = np.random.default_rng(8)
     ll = rng.normal(-1, 0.7, size=(37, 1000))
-    ll[4] = rng.standard_t(2, size=1000) * 8.0 - 30.0  # deep tail: guard per chunk
+    ll[4] = rng.standard_t(2, size=1000) * 8.0 - 30.0  # deep tail: one decision, all rows
     m = tail_length(1000)
     x = torch.from_numpy(ll)
     one = apply_rowwise(lambda b: tk.loo_scores_psis(b, m), x)

@@ -393,3 +393,87 @@ def test_degenerate_weights_split_the_packages_decisions_pinned():
     assert np.isfinite(jres.loo_i.values).all()
     same = np.setdiff1d(np.arange(262), [15, 129])
     assert_allclose(tres.loo_i.values[same], jres.loo_i.values[same], **F64)
+
+
+# -- the float64 deep-tail guard, one lane at a time --------------------------
+
+_A, _C = np.array([10.0, 0.45, 0.4]), np.array([0.3, 0.2, -0.4])
+
+
+def _t_lp(u):
+    return -0.5 * (u**2).sum(-1)
+
+
+def _t_col(u, obs):
+    a, c = torch.from_numpy(_A)[obs], torch.from_numpy(_C)[obs]
+    return -a[:, None] * (u[..., 0] - c[:, None]) ** 2
+
+
+def _j_lp(u):
+    return -0.5 * jnp.sum(u**2, -1)
+
+
+def _j_col(u, i):
+    return -jnp.asarray(_A)[i] * (u[:, 0] - jnp.asarray(_C)[i]) ** 2
+
+
+def test_batched_lanes_decide_the_deep_tail_guard_one_by_one(monkeypatch):
+    """Lane 0's ratios ``10 (u_0 - 0.3)^2`` put its tail far below e^-60;
+    lanes 1 and 2 are ordinary.  Lane 0 is inactive (k = -inf), so its
+    state stays, but its rows go through every re-fit beside the others.
+    ``pyloo_tpu`` vmaps the loop, and each lane takes its own branch of the
+    guard: lanes 1 and 2 the linear fit, lane 0 the signed-log one."""
+    from pyloo_tpu_torch.ops import guard, psis as tpsis
+
+    rng = np.random.default_rng(3)
+    upars = rng.normal(size=(1000, 2))
+    obs = np.arange(3)
+    ll0 = np.stack([-_A[i] * (upars[:, 0] - _C[i]) ** 2 for i in obs])
+    lw0, k0 = tpsis.psislw_batch(torch.from_numpy(-ll0), 95)
+    k0[0] = -math.inf
+    orig = _t_lp(torch.from_numpy(upars))
+    decided = []
+    real = guard.by_branch
+
+    def spy(deep, *args):
+        decided.append(deep if isinstance(deep, bool) else tuple(deep))
+        return real(deep, *args)
+
+    monkeypatch.setattr(tpsis, "by_branch", spy)
+    kw = dict(tail_max=95, max_iters=4, use_cov=True)
+    got = tops.batched_moment_match(torch.from_numpy(upars), torch.from_numpy(obs), orig,
+                                    torch.from_numpy(ll0), lw0, k0, 0.3, log_prob_fn=_t_lp,
+                                    log_lik_col_fn=_t_col, **kw)
+    want = jops.batched_moment_match(
+        jnp.asarray(upars), jnp.asarray(obs, jnp.int32), jnp.asarray(orig.numpy()),
+        jnp.asarray(ll0), jnp.asarray(lw0.numpy()), jnp.asarray(k0.numpy()), jnp.asarray(0.3),
+        log_prob_fn=_j_lp, log_lik_col_fn=_j_col, **kw)
+    assert (True, False, False) in decided  # one lane deep: the others stay linear
+    assert True not in decided
+    assert int(got["n_accepted"][1]) > 0 and int(got["n_accepted"][2]) > 0
+    for key in ("ki", "kfi", "lwi", "log_liki", "total_shift", "total_scaling"):
+        assert_allclose(np.asarray(got[key])[1:], np.asarray(want[key])[1:], **F64)
+    assert_allclose(np.asarray(got["n_accepted"]), np.asarray(want["n_accepted"]))
+    assert torch.equal(got["lwi"][0], lw0[0]) and torch.equal(got["ki"][0], k0[0])
+    assert_allclose(np.asarray(want["lwi"])[0], lw0[0].numpy(), **F64)
+
+
+def test_a_near_flat_tail_carries_the_last_bit_of_its_ratios_into_k():
+    """Why moment matching over the mesh is held to ``pyloo_tpu`` at 1e-10
+    (``tests/test_torch_parallel.py``): a transform that works flattens the
+    ratios, and once the tail spans ~1e-3 nats the exceedances
+    ``exp(x) - exp(cutoff)`` are made by cancellation, so a last-bit change
+    of the ratios (as the two packages' ``log_prob`` evaluations make)
+    moves k by ~1e-11.  The fits agree on equal inputs."""
+    from pyloo_tpu.ops import psis as jpsis
+    from pyloo_tpu_torch.ops import psis as tpsis
+
+    rng = np.random.default_rng(0)
+    x = 5.0 + 1e-3 * rng.uniform(size=(4, 1000))
+    k = tpsis.psislw_batch(torch.from_numpy(x), 95)[1].numpy()
+    assert (k < -0.5).all()
+    assert_allclose(k, np.asarray(jpsis.psislw_batch(jnp.asarray(x), 95)[1]), rtol=0, atol=1e-13)
+    nudged = x * (1 + rng.choice([-1, 1], size=x.shape) * np.finfo(np.float64).eps / 2)
+    for fit in (lambda a: tpsis.psislw_batch(torch.from_numpy(a), 95)[1].numpy(),
+                lambda a: np.asarray(jpsis.psislw_batch(jnp.asarray(a), 95)[1])):
+        assert np.abs(fit(nudged) - fit(x)).max() > 1e-11

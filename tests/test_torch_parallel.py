@@ -8,10 +8,11 @@ replacing ``parallel.sharding._visible_devices``.  ``pyloo_tpu`` runs over a
 ``Mesh`` of as many of the 8 virtual CPU devices ``tests/conftest.py`` gives
 it.
 
-Per-row results are held bit for bit to the port's own run with no mesh
-(float64 rows whose shard takes another branch of the deep-tail guard than
-their chunk did within 1e-12), and to ``pyloo_tpu`` within rtol and atol
-1e-12 in float64 and 1e-5 in float32.  The streaming cases use chunks of
+Per-row results are held bit for bit to the port's own run with no mesh,
+and to ``pyloo_tpu`` within rtol and atol 1e-12 in float64 and 1e-5 in
+float32.  The float64 deep-tail guard decides over ``pyloo_tpu``'s batches
+(``ops/guard.py``), which the deep-tail cases check at every call site, with
+the guard's host reads counted.  The streaming cases use chunks of
 ``64 n`` rows, so that every shard holds a multiple of 64 rows: the CPU's
 elementwise kernels take a tensor in vector blocks and its ragged end one
 element at a time, and the two can give a transcendental function's last bit
@@ -34,8 +35,11 @@ import pyloo_tpu as jpl
 import pyloo_tpu_torch as tpl
 from pyloo_tpu import streaming as jstreaming
 from pyloo_tpu.ops import loo_kernels as jlk
+from pyloo_tpu.ops import psis as jpsis
 from pyloo_tpu.parallel import sharding as jsharding
+from pyloo_tpu_torch.ops import guard
 from pyloo_tpu_torch.ops import loo_kernels as tlk
+from pyloo_tpu_torch.ops import psis as tpsis
 from pyloo_tpu_torch.ops import nonfactor as tnf
 from pyloo_tpu_torch.ops import tail_length, topk
 from pyloo_tpu_torch.parallel import Mesh, obs_mesh, sharding, witness
@@ -131,7 +135,7 @@ def test_shard_bounds_cover_the_rows_in_order(n, shards):
 
 def _rows(b, s, seed, dtype=np.float64):
     """Rows with some heavy tails, none so deep that a batch of them takes
-    the float64 deep-tail branch (that case is the test after the next)."""
+    the float64 deep-tail branch (that case is ``_deep``'s)."""
     rng = np.random.default_rng(seed)
     ll = rng.normal(-1.0, 0.7, size=(b, s))
     ll[::37] = 0.8 * rng.standard_t(4, size=ll[::37].shape) - 1.0
@@ -178,28 +182,116 @@ def test_apply_rowwise_takes_the_default_mesh_of_its_inputs_kind(monkeypatch):
     assert seen == [300]
 
 
+def _deep(b=256, s=1000, rows=(5,), seed=8):
+    """Rows like ``_rows``' and, at ``rows``, a t(2) row whose quartile
+    exceedance lies far below e^-60: a batch that holds one takes the
+    float64 deep-tail branch, the signed-log fit, on every row."""
+    rng = np.random.default_rng(seed)
+    ll = rng.normal(-1, 0.7, size=(b, s))
+    for r in rows:
+        ll[r] = rng.standard_t(2, size=s) * 8.0 - 30.0
+    return ll
+
+
+@pytest.fixture
+def reads(monkeypatch):
+    """The deep-tail guard's host reads, counted."""
+    count = [0]
+    real = guard.host_read
+
+    def counted(flags):
+        count[0] += 1
+        return real(flags)
+
+    monkeypatch.setattr(guard, "host_read", counted)
+    return count
+
+
 def test_deep_tail_guard_takes_both_branches_under_a_mesh():
-    # row 5 has a quartile exceedance far below e^-60: its batch takes the
-    # log-domain fit, the shards without it the linear one.  The two fits
-    # give elpd within 1.1e-13 here, but Pareto k up to 8.2e-12 apart (row
-    # 151, k = 0.20), beyond the 1e-12 a float64 row is held to elsewhere:
-    # k of such rows is held at 1e-10
-    rng = np.random.default_rng(8)
-    ll = rng.normal(-1, 0.7, size=(256, 1000))
-    ll[5] = rng.standard_t(2, size=1000) * 8.0 - 30.0
+    # row 5 is deep in its tail.  pyloo_tpu decides the guard over its whole
+    # sharded call, so every row of every shard takes the signed-log fit, as
+    # every row does with no mesh, where the 256 rows are one of pyloo_tpu's
+    # chunks.  (Shards deciding alone put Pareto k 8.2e-12 apart.)
+    ll = _deep()
     m = tail_length(1000)
     x = torch.from_numpy(ll)
     none = sharding.apply_rowwise(lambda b: tlk.loo_scores_psis(b, m), x)
     got = sharding.apply_rowwise(lambda b: tlk.loo_scores_psis(b, m), x, mesh=cpu_mesh(4))
     want = jsharding.apply_rowwise(lambda b: jlk.loo_scores_psis(b, m), jnp.asarray(ll),
                                    n_outputs=3, mesh=jmesh(4))
-    for name, g, a, w in zip(("elpd", "k", "lppd"), got, none, want):
-        # shard 0 holds row 5 and takes the batch's branch: bit for bit
-        assert_array_equal(g[:64].numpy(), a[:64].numpy())
-        tol = dict(rtol=1e-10, atol=1e-10) if name == "k" else F64
-        assert_allclose(g.numpy(), a.numpy(), **tol)
-        assert_allclose(g.numpy(), np.asarray(w), **tol)
-    assert not torch.equal(got[1], none[1])  # the other shards took the other branch
+    for g, a, w in zip(got, none, want):
+        assert_array_equal(g.numpy(), a.numpy())
+        assert_allclose(g.numpy(), np.asarray(w), **F64)
+
+
+def _psis_both(m):
+    """(port, pyloo_tpu) row functions of both float64 fit sites: the
+    scorer's and the weights'."""
+    return ((lambda b: tlk.loo_scores_psis(b, m) + tpsis.psislw_batch(-b, m)),
+            (lambda b: jlk.loo_scores_psis(b, m) + jpsis.psislw_batch(-b, m)))
+
+
+@pytest.mark.parametrize("n", MESHES)
+def test_deep_tail_guard_decides_over_the_whole_call_under_a_mesh(n, reads):
+    ll = _deep(rows=(5, 200))  # two deep rows, on shards of their own from n = 4 on
+    m = tail_length(1000)
+    tfn, jfn = _psis_both(m)
+    x = torch.from_numpy(ll)
+    none = sharding.apply_rowwise(tfn, x)
+    reads[0] = 0
+    got = sharding.apply_rowwise(tfn, x, mesh=cpu_mesh(n))
+    assert reads[0] == 1  # one decision group, one read, after every shard is queued
+    want = jsharding.apply_rowwise(jfn, jnp.asarray(ll), n_outputs=5, mesh=jmesh(n))
+    for g, a, w in zip(got, none, want):
+        assert_array_equal(g.numpy(), a.numpy())
+        assert_allclose(g.numpy(), np.asarray(w), **F64)
+
+
+@pytest.mark.parametrize("group_rows", [None, 100])
+def test_deep_tail_guard_decides_over_pyloo_tpus_chunks(monkeypatch, reads, group_rows):
+    """No mesh: the groups are pyloo_tpu's chunks of rows, whatever chunks
+    the port's budget runs (here 64 rows).  ``group_rows`` 100 cuts
+    pyloo_tpu's chunks at 100 rows, so the port's chunk 64:128 holds rows of
+    a deep group and of a shallow one."""
+    monkeypatch.setattr(jsharding, "obs_mesh", lambda *a, **k: None)
+    ll = _deep(rows=(5, 150))  # groups 0:100 and 100:200 are deep, 200:256 is not
+    m = tail_length(1000)
+    tfn, jfn = _psis_both(m)
+    jkw = {}
+    if group_rows is not None:
+        monkeypatch.setattr(sharding, "_GUARD_CHUNK_BYTES", group_rows * 1000 * 8)
+        jkw["chunk_bytes"] = group_rows * 1000 * 8
+    budget = sharding._LIVE_ROW_BUFFERS * 64 * 1000 * 8
+    got = sharding.apply_rowwise(tfn, torch.from_numpy(ll), chunk_bytes=budget)
+    assert reads[0] == 1
+    want = jsharding.apply_rowwise(jfn, jnp.asarray(ll), n_outputs=5, **jkw)
+    for g, w in zip(got, want):
+        assert_allclose(g.numpy(), np.asarray(w), **F64)
+    if group_rows is not None:  # the shallow group took the linear fit: its k differs
+        whole = sharding.apply_rowwise(tfn, torch.from_numpy(ll), mesh=cpu_mesh(1))
+        assert not torch.equal(got[1][200:], whole[1][200:])
+        assert_array_equal(got[1][:200].numpy(), whole[1][:200].numpy())
+
+
+def test_deep_tail_guard_reads_nothing_in_float32_and_once_a_call_in_float64(reads):
+    m = tail_length(1000)
+    x = torch.from_numpy(_rows(300, 1000, 4))
+    fast = lambda b: tlk.loo_scores_psis_fast(b, m)  # noqa: E731
+    sharding.apply_rowwise(fast, x.float(), mesh=cpu_mesh(4))
+    sharding.apply_rowwise(lambda b: tlk.loo_scores_sis(b), x, mesh=cpu_mesh(4))
+    assert reads[0] == 0
+    sharding.apply_rowwise(lambda b: tlk.loo_scores_psis(b, m), x, mesh=cpu_mesh(4))
+    assert reads[0] == 1
+    tlk.loo_scores_psis(x, m)  # a direct call decides over its own batch
+    assert reads[0] == 2
+
+
+def test_guard_groups_are_pyloo_tpus_batches():
+    assert sharding.guard_groups(262_144, 4000, 8, None) == [
+        (0, 67_108), (67_108, 134_216), (134_216, 201_324), (201_324, 262_144)]
+    assert sharding.guard_groups(262_144, 4000, 8, cpu_mesh(4)) == [(0, 262_144)]
+    assert sharding.guard_groups(65_536, 4000, 8, None) == [(0, 65_536)]
+    assert sharding.guard_groups(10, 2 << 30, 8, None) == [(a, a + 1) for a in range(10)]
 
 
 @pytest.mark.parametrize("precision", ["float64", "float32"])
@@ -296,6 +388,29 @@ def test_loo_streaming_float32_over_a_mesh():
     assert got.fast_path_degenerate == none.fast_path_degenerate
     assert_allclose(got["elpd_loo"], want["elpd_loo"], **F32)
     assert_allclose(got.loo_i.values, want.loo_i.values, **F32)
+
+
+_DEEP = _deep(b=512, rows=(5, 300))
+_DEEP_T, _DEEP_J = torch.from_numpy(_DEEP), jnp.asarray(_DEEP)
+
+
+@pytest.mark.parametrize("n", MESHES)
+def test_loo_streaming_deep_tail_over_a_mesh(n, reads):
+    # chunks of 64 n rows: one chunk at n = 8, and at n = 1 chunks 0 and 4
+    # deep and the others not; each chunk is one decision, across its shards
+    common = dict(chunk_size=64 * n, pointwise=True, dtype="float64")
+    none = _quiet(tpl.loo_streaming, lambda i: _DEEP_T[i], 512, 1000, **common)
+    reads[0] = 0
+    got = _quiet(tpl.loo_streaming, lambda i: _DEEP_T[i], 512, 1000, mesh=cpu_mesh(n),
+                 **common)
+    assert reads[0] == 512 // (64 * n)  # one read a chunk, not one a shard
+    want = _quiet(jpl.loo_streaming, lambda i: _DEEP_J[i], 512, 1000, mesh=jmesh(n), **common)
+    assert_array_equal(got.loo_i.values, none.loo_i.values)
+    assert_array_equal(got.pareto_k.values, none.pareto_k.values)
+    assert_allclose(got.loo_i.values, want.loo_i.values, **F64)
+    assert_allclose(got.pareto_k.values, want.pareto_k.values, **F64)
+    for key in ("elpd_loo", "se", "p_loo"):
+        assert_allclose(got[key], want[key], **F64)
 
 
 def test_loo_streaming_checkpoint_resumes_under_a_mesh(tmp_path):
@@ -537,6 +652,9 @@ def test_moment_matching_splits_its_lanes_over_the_mesh(monkeypatch, mm_fitted):
     assert got.moment_match_passes >= 1
     assert_allclose(got.loo_i.values, single.loo_i.values, **F64)
     assert_allclose(got.pareto_k.values, single.pareto_k.values, **F64)
+    # a lane whose ratios flattened carries the packages' last bits of log_prob
+    # into k by ~1e-11, no guard involved (ROADMAP Queue 3 item 39, tested in
+    # test_torch_moment_match.py::test_a_near_flat_tail_carries_the_last_bit_of_its_ratios_into_k)
     assert_allclose(got.loo_i.values, want.loo_i.values, rtol=1e-10, atol=1e-10)
     assert_allclose(got.pareto_k.values, want.pareto_k.values, rtol=1e-10, atol=1e-10)
 

@@ -245,8 +245,8 @@ def test_psislw_chunked_equals_whole():
     x = torch.from_numpy(lw)
     m = tpsis.tail_length(1000)
     whole = tpsis.psislw_batch(x, m)
-    # 8 rows a chunk: the deep-tail row sends only its own chunk to the
-    # signed-log fit, the others take the linear fit
+    # 8 rows a chunk: the deep-tail row's decision group is pyloo_tpu's
+    # batch, all the rows, so every chunk takes the signed-log fit
     chunked = apply_rowwise(
         lambda b: tpsis.psislw_batch(b, m), x, chunk_bytes=8 * 6 * 1000 * 8, extra_buffers=2
     )
