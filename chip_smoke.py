@@ -145,7 +145,13 @@ Phases:
    CPU over those rows and 3,712 clean ones, every other row equal to
    phase 5's bit for bit; (c) the same rows on phase 6's 262,144-row cut
    through ``loo_from_file``, ``loo_compare_streaming``, float32 ``loo()``,
-   ``loo_group`` and ``loo_subsample``, each a launch window of its own.
+   ``loo_group`` and ``loo_subsample``, each a launch window of its own;
+15. the benchmark's two cells (``bench_torch/``), once each through its own
+   functions: ``loo_streaming`` at 1,000,000 x 4,000 float32 with the model
+   on the card, and float64 ``loo()`` on a host array of the model's first
+   262,144 observations, each held by its gate to the plain float64
+   reference (``bench_torch/reference.py``) on 512 seeded rows, each a
+   launch window of its own, with its wall time.
 
 Every main path runs with the kernels' launch counters set to 0 just before
 it and read just after; comparisons with the plain versions run outside
@@ -597,35 +603,6 @@ def phase_variants(kernels: dict) -> None:
     print(f"  time  torch.topk ({b}, {s}) k={k}: {e['library_ms']:.3f} ms", flush=True)
 
 
-def logistic_model(n_obs: int, chains: int, draws: int, seed: int):
-    """A logistic regression with 32 features on the card, made from
-    ``seed``: ``(xw, yw, beta)``, ``beta`` (chains, draws, 32) its posterior."""
-    import torch
-
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    beta = 0.3 * torch.randn(chains, draws, 32, device="cuda", generator=gen)
-    xw = 0.5 * torch.randn(n_obs, 32, device="cuda", generator=gen)
-    yw = (torch.rand(n_obs, device="cuda", generator=gen) < 0.5).float()
-    return xw, yw, beta
-
-
-def logistic_chunks(model):
-    """``log_lik_fn(idx)`` of the model on the card, for ``loo_streaming``:
-    the (chunk, S) log-likelihood, sample = chain * draws + draw as
-    ``loo()`` stacks them."""
-    import torch
-
-    xw, yw, beta = model
-    beta_s = beta.reshape(beta.shape[0] * beta.shape[1], -1)
-    zero = xw.new_zeros(())
-
-    def log_lik_fn(idx):
-        eta = xw[idx] @ beta_s.T  # (chunk, S), full float32 (no TF32)
-        return yw[idx, None] * eta - torch.logaddexp(eta, zero)
-
-    return log_lik_fn
-
-
 def logistic_log_lik(n_obs: int, chains: int, draws: int, seed: int):
     """Host (chain, draw, obs) float32 log-likelihood of a logistic regression
     with 32 features, computed on the card; ``beta`` as its posterior; and
@@ -633,7 +610,9 @@ def logistic_log_lik(n_obs: int, chains: int, draws: int, seed: int):
     import numpy as np
     import torch
 
-    xw, yw, beta = logistic_model(n_obs, chains, draws, seed)
+    from bench_torch import model as bench_model
+
+    xw, yw, beta = bench_model.logistic_model(n_obs, chains, draws, seed, "cuda")
     zero = xw.new_zeros(())
     ll = np.empty((chains, draws, n_obs), np.float32)
     for c in range(chains):
@@ -838,12 +817,13 @@ def phase_streaming(pl, ll_host, model, reff: float, res32, res64) -> dict:
     from pyloo_tpu_torch.ops.psis import tail_length
     from pyloo_tpu_torch.ops.topk import _CUTOFF_FLOOR, overflow_rows
     from pyloo_tpu_torch.streaming._chunks import resolve_chunk
+    from bench_torch import model as bench_model
 
     print("phase 5: loo_streaming float32 at 1,000,000 x 4,000, the model on the card",
           flush=True)
     xw, _, beta = model
     n_obs, s = xw.shape[0], beta.shape[0] * beta.shape[1]
-    log_lik_fn = logistic_chunks(model)
+    log_lik_fn = bench_model.log_lik_fn(model)
 
     m_tail = tail_length(s, reff)
     chunk, n_chunks = resolve_chunk(None, n_obs, s, torch.float32)
@@ -2554,6 +2534,8 @@ def first_use_child(mode: str, reff: float) -> None:
     import pyloo_tpu_torch as pl
 
     out = {"mode": mode, "import_s": time.perf_counter() - t, "calls": []}
+    from bench_torch import model as bench_model
+
     torch.backends.cuda.matmul.allow_tf32 = False
     pl.rcParams["device.device"] = "cuda"
     n_obs, s = 1_000_000, 4_000
@@ -2564,10 +2546,10 @@ def first_use_child(mode: str, reff: float) -> None:
         out["warmup_s"] = time.perf_counter() - t
         out["warmup_launches"] = read_counts()
     t = time.perf_counter()
-    model = logistic_model(n_obs, 4, 1_000, seed=7)
+    model = bench_model.logistic_model(n_obs, 4, 1_000, 7, "cuda")
     torch.cuda.synchronize()
     out["model_s"] = time.perf_counter() - t
-    log_lik_fn = logistic_chunks(model)
+    log_lik_fn = bench_model.log_lik_fn(model)
     for _ in range(1 if mode == "warmup" else 2):
         zero_counts()
         t = time.perf_counter()
@@ -2663,6 +2645,7 @@ def phase_first_use(pl, smi: str, model, reff: float, phase5: dict, ll_wells) ->
     from pyloo_tpu_torch.models import pymc_adapter
     from pyloo_tpu_torch.models.wrapper import map_draws
     from pyloo_tpu_torch.profiling import Throughput, annotate, trace
+    from bench_torch import model as bench_model
 
     print(f"phase 12: warmup, ingestion, profiling and the PyMC bridge ({smi})", flush=True)
     pl.rcParams["device.device"] = "cuda"
@@ -2783,7 +2766,7 @@ def phase_first_use(pl, smi: str, model, reff: float, phase5: dict, ll_wells) ->
         with trace(log_dir):
             t.append(time.perf_counter())  # the profiler started
             with meter.measure(n_items=n_obs), annotate("loo_streaming"):
-                res = pl.loo_streaming(logistic_chunks(model), n_obs, s, reff=reff,
+                res = pl.loo_streaming(bench_model.log_lik_fn(model), n_obs, s, reff=reff,
                                        dtype="float32", pointwise=True)
                 torch.cuda.synchronize()
         t.append(time.perf_counter())  # stopped and exported
@@ -2855,6 +2838,7 @@ def phase_mesh(pl, smi: str, model, reff: float, phase5: dict, ll_cut) -> None:
     from pyloo_tpu_torch.ops import topk
     from pyloo_tpu_torch.parallel import Mesh, witness
     from pyloo_tpu_torch.streaming._chunks import resolve_chunk
+    from bench_torch import model as bench_model
 
     n_cards = torch.cuda.device_count()
     cards = subprocess.run(
@@ -2891,7 +2875,7 @@ def phase_mesh(pl, smi: str, model, reff: float, phase5: dict, ll_cut) -> None:
     # (b) phase 5's loo_streaming over the mesh, the model on each card
     n_obs, s = model[0].shape[0], model[2].shape[0] * model[2].shape[1]
     copies = {d: tuple(t.to(d) for t in model) for d in set(mesh.devices)}
-    fns = {d: logistic_chunks(copies[d]) for d in copies}
+    fns = {d: bench_model.log_lik_fn(copies[d]) for d in copies}
 
     def log_lik_fn(idx):  # the generator contract over a mesh: rows on idx.device
         return fns[idx.device](idx)
@@ -3261,6 +3245,7 @@ def phase_edge(pl, smi: str, kernels: dict, model, reff: float, phase5: dict,
     from pyloo_tpu_torch.ops.psis import tail_length
     from pyloo_tpu_torch.parallel.sharding import chunk_rows
     from pyloo_tpu_torch.streaming._chunks import resolve_chunk
+    from bench_torch import model as bench_model
 
     z = dict(wide=(131_072, 4_000), deep=(4_096, 32_768), multi=(8_192, 80_000),
              multi_rows=1_024, n_cut=262_144, n_sample=3_712, planted=(384, 1_000, 641))
@@ -3326,7 +3311,7 @@ def phase_edge(pl, smi: str, kernels: dict, model, reff: float, phase5: dict,
     n_obs, s = xw.shape[0], beta.shape[0] * beta.shape[1]
     masks, values, kinds = plant_patterns(s, device)
     planted = planted_rows(n_obs, z["n_cut"], *z["planted"])
-    clean_fn = logistic_chunks(model)
+    clean_fn = bench_model.log_lik_fn(model)
     log_lik_fn = planted_chunks(clean_fn, n_obs, planted, masks, values)
     chunk, n_chunks = resolve_chunk(None, n_obs, s, torch.float32)
     print(f"phase 14b: loo_streaming float32 at {n_obs} x {s}, {len(planted)} planted rows"
@@ -3499,6 +3484,7 @@ def phase_edge_alone() -> int:
     import pyloo_tpu_torch as pl
     from pyloo_tpu_torch import _build
     from pyloo_tpu_torch._common import compute_reff
+    from bench_torch import model as bench_model
 
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3506,12 +3492,12 @@ def phase_edge_alone() -> int:
     print(smi, flush=True)
     _build.load()
     pl.rcParams["device.device"] = "cuda"
-    model = logistic_model(1_000_000, 4, 1_000, seed=7)
+    model = bench_model.logistic_model(1_000_000, 4, 1_000, 7, "cuda")
     xw, _, beta = model
     s = beta.shape[0] * beta.shape[1]
     reff = compute_reff(pl.from_dict(posterior={"beta": beta.cpu().numpy()}), None, s)
-    res = pl.loo_streaming(logistic_chunks(model), xw.shape[0], s, reff=reff, dtype="float32",
-                           pointwise=True)
+    res = pl.loo_streaming(bench_model.log_lik_fn(model), xw.shape[0], s, reff=reff,
+                           dtype="float32", pointwise=True)
     phase5 = {"loo_i": res.loo_i.values, "pareto_k": res.pareto_k.values}
     kernels = {key: {"max_abs_err": 0.0} for key in KERNEL_COUNTERS}
     phase_edge(pl, smi, kernels, model, reff, phase5)
@@ -3533,6 +3519,7 @@ def phase_mesh_alone() -> int:
     import pyloo_tpu_torch as pl
     from pyloo_tpu_torch import _build
     from pyloo_tpu_torch._common import compute_reff
+    from bench_torch import model as bench_model
 
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3540,12 +3527,12 @@ def phase_mesh_alone() -> int:
     print(smi, flush=True)
     _build.load()
     pl.rcParams["device.device"] = "cuda"
-    model = logistic_model(1_000_000, 4, 1_000, seed=7)
+    model = bench_model.logistic_model(1_000_000, 4, 1_000, 7, "cuda")
     xw, yw, beta = model
     s = beta.shape[0] * beta.shape[1]
     reff = compute_reff(pl.from_dict(posterior={"beta": beta.cpu().numpy()}), None, s)
-    res = pl.loo_streaming(logistic_chunks(model), xw.shape[0], s, reff=reff, dtype="float32",
-                           pointwise=True)
+    res = pl.loo_streaming(bench_model.log_lik_fn(model), xw.shape[0], s, reff=reff,
+                           dtype="float32", pointwise=True)
     phase5 = {"digest": result_digest(res), "elpd_loo": res["elpd_loo"]}
     zero = xw.new_zeros(())
     ll_cut = np.empty((beta.shape[0], beta.shape[1], 262_144), np.float32)
@@ -3556,6 +3543,41 @@ def phase_mesh_alone() -> int:
     phase_mesh(pl, smi, model, reff, phase5, ll_cut)
     print(f"chip_smoke: {len(_FAILURES)} check(s) failed", flush=True)
     return len(_FAILURES)
+
+
+def phase_bench(smi: str) -> None:
+    """Phase 15: each cell of ``bench_torch`` once, through its functions
+    (one timed call, no trace), its gate applied, its launches counted."""
+    import torch
+
+    from bench_torch import bench
+
+    print(f"phase 15: the benchmark's cells, once each ({smi})", flush=True)
+    for name in (bench.STREAMING_CELL, bench.HOST_CELL):
+        torch.cuda.empty_cache()
+        zero_counts()
+        t = time.perf_counter()
+        res = bench.run_cell(name, bench.SEED, "cuda", repeats=1, profile=False)
+        wall = time.perf_counter() - t
+        got = read_counts()
+        per_call = res["metrics"]["kernel_a_launches_per_call"]["value"]
+        want = res["shape"].get("n_chunks", 0)
+        check(per_call == want and (got["A"] > 0) == (want > 0)
+              and got["B"] == got["C"] == got["D"] == got["E"] == 0,
+              f"15 {name}: kernel A launched {per_call:g} times a call ({want} chunks),"
+              f" {got['A']} in the cell's window (warmup, first and timed call); B-E {got['B']},"
+              f" {got['C']}, {got['D']}, {got['E']}")
+        g = res["gate"]
+        check(g["passed"], f"15 {name}: {g['rows']} rows against the float64 reference, max |d"
+              f" loo_i| {g['max_abs_err_loo_i']:.3g} (rtol/atol {g['tol_loo_i']:g}), max |d k|"
+              f" {g['max_abs_err_k']:.3g} ({g['tol_k']:g}); {g['tie_rows']} cutoff-tie rows,"
+              f" max |d k| {g['max_abs_err_k_tie_rows']:.3g} ({g['tol_tie_rows']:g})")
+        m = res["metrics"]
+        print(f"  time  15 {name}: one call {m['wall_s']['median']:.3f} s"
+              f" ({m['obs_per_sec']['value']:.0f} obs/s), peak device memory"
+              f" {m['peak_device_gb']['value']:.2f} GB; the cell {wall:.1f} s with its set-up"
+              f" ({', '.join(f'{k} {v:.2f}' for k, v in res['setup'].items() if k.endswith('_s'))})"
+              f" on {smi}", flush=True)
 
 
 @contextlib.contextmanager
@@ -3690,6 +3712,8 @@ def main() -> int:
     phase_mesh(pl, smi, model, reff, phase5, ll_cut)
     del ll_cut
     phase_edge(pl, smi, kernels, model, reff, phase5)
+    del model
+    phase_bench(smi)
 
     for key, kern in kernels.items():
         kern["launches"] = PATH_LAUNCHES[KERNEL_COUNTERS[key]]

@@ -2,8 +2,8 @@
 
 The machine with the card has no JAX and no pandas, so the package must
 import and run ``loo`` with both blocked, and must never import
-``pyloo_tpu``.  A device of ``"cuda"`` without a CUDA device raises instead
-of computing on the CPU.
+``pyloo_tpu``; nor may the benchmark, ``bench_torch/``.  A device of
+``"cuda"`` without a CUDA device raises instead of computing on the CPU.
 """
 
 import os
@@ -208,7 +208,7 @@ print("isolated ok")
 """
 
 
-def test_runs_without_jax_or_pandas_and_never_falls_back():
+def test_runs_without_jax_or_pandas_and_never_falls_back(tmp_path):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run(
         [sys.executable, "-c", _SCRIPT.replace("{repo!r}", repr(str(REPO)))],
@@ -216,7 +216,7 @@ def test_runs_without_jax_or_pandas_and_never_falls_back():
         text=True,
         timeout=300,
         env=env,
-        cwd=REPO.parent,
+        cwd=tmp_path,
     )
     assert proc.returncode == 0, proc.stderr
     assert "isolated ok" in proc.stdout
@@ -232,6 +232,43 @@ def test_no_source_imports_jax_or_pyloo_tpu():
         if pattern.search(path.read_text())
     ]
     assert offenders == []
+
+
+def test_bench_torch_imports_neither_jax_pandas_nor_pyloo_tpu():
+    """The benchmark's files import torch, numpy and the port only: no
+    JAX, pandas or pyloo_tpu, and nothing of chip_smoke.py or the tests."""
+    import re
+
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|pandas|pyloo_tpu|chip_smoke|tests)\b",
+                         re.MULTILINE)
+    files = sorted((REPO / "bench_torch").rglob("*.py"))
+    assert len(files) == 5
+    assert [str(p.relative_to(REPO)) for p in files if pattern.search(p.read_text())] == []
+
+
+_BENCH = r"""
+import runpy
+import sys
+for name in ("jax", "pandas", "pyloo_tpu", "chip_smoke", "tests"):
+    sys.modules[name] = None
+for cell in ("loo_streaming_logit32_1m_x_4k_f32", "loo_logit32_262k_x_4k_f64_host"):
+    sys.argv = ["bench.py", "--cell", cell, "--device", "cpu", "--n-obs", "600",
+                "--draws", "50"]
+    try:
+        runpy.run_path({path!r}, run_name="__main__")
+    except SystemExit as exit:
+        assert exit.code == 0, exit.code
+print("bench isolated ok")
+"""
+
+
+def test_bench_torch_runs_with_jax_pandas_and_pyloo_tpu_blocked(tmp_path):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    script = _BENCH.replace("{path!r}", repr(str(REPO / "bench_torch" / "bench.py")))
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                          timeout=300, env=env, cwd=tmp_path)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.count("gate passed") == 2 and "bench isolated ok" in proc.stdout
 
 
 def test_chip_smoke_refuses_without_a_card():
@@ -354,7 +391,7 @@ print("slice 10 isolated ok")
 """
 
 
-def test_ingestion_plots_warmup_and_bridge_run_with_optional_packages_blocked():
+def test_ingestion_plots_warmup_and_bridge_run_with_optional_packages_blocked(tmp_path):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run(
         [sys.executable, "-c", _SLICE10.replace("{repo!r}", repr(str(REPO)))],
@@ -362,7 +399,7 @@ def test_ingestion_plots_warmup_and_bridge_run_with_optional_packages_blocked():
         text=True,
         timeout=300,
         env=env,
-        cwd=REPO.parent,
+        cwd=tmp_path,
     )
     assert proc.returncode == 0, proc.stderr
     assert "slice 10 isolated ok" in proc.stdout
