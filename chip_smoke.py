@@ -151,7 +151,16 @@ Phases:
    on the card, and float64 ``loo()`` on a host array of the model's first
    262,144 observations, each held by its gate to the plain float64
    reference (``bench_torch/reference.py``) on 512 seeded rows, each a
-   launch window of its own, with its wall time.
+   launch window of its own, with its wall time;
+16. the repo's two verification harnesses, ported
+   (``pyloo_tpu_torch/tools/validate_kernels.py``, every section: kernels
+   A-D bitwise to their plain versions over the card's envelope, S 2 to
+   32,768 and beyond by draw-axis parts, k 1 to 1,024, B 1 to 4,099, views at
+   unaligned columns, adversarial, tie, overflow, concentrated and edge
+   rows; float64 PSIS, e_loo, non-factorised and moment-matching programs
+   against their oracles; and ``fuzz_differential.py``, every mode with a
+   fixed seed, each trial also held to the CPU), their launches counted
+   outside the main-path windows.
 
 Every main path runs with the kernels' launch counters set to 0 just before
 it and read just after; comparisons with the plain versions run outside
@@ -3580,6 +3589,78 @@ def phase_bench(smi: str) -> None:
               f" on {smi}", flush=True)
 
 
+# phase 16: the fuzz's trials a mode (the modes' shares of it, as the
+# script takes them: streaming, fast32 and subsample this many, nonfactor
+# and mesh 4, lfo 5, mm 4) and its seed
+TOOL_TRIALS = 8
+TOOL_SEED = 20260818
+
+
+def tool_coverage(records) -> list:
+    """What ``validate_kernels``' records lack of the card's envelope, per
+    kernel A-D: a case at S < 32, at B < 4, at a view's unaligned column, at
+    each sort tier P its k takes, and in each of the adversarial, tie,
+    overflow and edge families."""
+    missing = []
+    for letter, max_k in (("A", 1_024), ("B", 1_024), ("C", 256), ("D", 256)):
+        mine = [r for r in records if r["kernel"] == letter]
+        tiers = {max(32, 1 << (r["k"] - 1).bit_length()) for r in mine}
+        wants = {"S < 32": any(r["s"] < 32 for r in mine),
+                 "B < 4": any(r["b"] < 4 for r in mine),
+                 "an unaligned view": any(r["col"] % 4 for r in mine),
+                 "every sort tier": tiers == {32 << i for i in range(6) if 32 << i <= max_k}}
+        for family in ("adversarial", "ties at k", "overflow", "edge"):
+            wants[family] = any(r["family"] == family for r in mine)
+        missing += [f"{letter}: {what}" for what, ok in wants.items() if not ok]
+    return missing
+
+
+def phase_tools(smi: str) -> None:
+    """Phase 16: the repo's two verification harnesses, ported, in this
+    process: every section of ``pyloo_tpu_torch.tools.validate_kernels``
+    (kernels A-D over their envelope, the float64 programs against their
+    oracles) and every mode of ``pyloo_tpu_torch.tools.fuzz_differential``
+    at ``TOOL_TRIALS`` and ``TOOL_SEED``, each trial also held to the CPU.
+    Their launches are counted outside the main-path windows, as phase 14a's."""
+    import torch
+
+    from pyloo_tpu_torch.tools import fuzz_differential, validate_kernels
+
+    print(f"phase 16: the verification tools, validate_kernels and fuzz_differential ({smi})",
+          flush=True)
+    t_phase = time.perf_counter()
+    device = torch.device("cuda", torch.cuda.current_device())
+    zero_counts()
+    run = validate_kernels.Run(device, TOOL_SEED)
+    t = time.perf_counter()
+    with warnings_quiet():
+        ok = validate_kernels.run_sections(run, validate_kernels.SECTIONS)
+    out = os.path.join("build", "validate_kernels.json")
+    validate_kernels.write_records(run, out, ok)
+    failed = [r for r in run.records if not r["pass"]]
+    check(ok and not failed and run.platform == "gpu",
+          f"16 validate_kernels: {len(run.records)} cases in {len(validate_kernels.SECTIONS)}"
+          f" sections, {len(failed)} failed, on {run.card} ({time.perf_counter() - t:.1f} s;"
+          f" records in {out})")
+    missing = tool_coverage(run.records)
+    check(not missing, "16 validate_kernels covers, for each of kernels A-D, S < 32, B < 4, an"
+          " unaligned view, every sort tier and the adversarial, tie, overflow and edge"
+          " families" + (f"; missing: {', '.join(missing)}" if missing else ""))
+    n_overflow = sum(r.get("overflow_rows_kernel") or 0 for r in run.records)
+    print(f"  rows  kernels A and B narrowed {n_overflow} rows by a further digit in the tool's"
+          " cases, each case equal to the plain scheme's count", flush=True)
+    for mode in fuzz_differential.MODES:
+        trials = fuzz_differential.trials_of(mode, TOOL_TRIALS)
+        res = fuzz_differential.fuzz_mode(mode, trials, TOOL_SEED, device)
+        check(res["failures"] == 0 and res["trials"] == trials,
+              f"16 fuzz {mode}: {res['trials']} trials (seed {TOOL_SEED}), {res['failures']}"
+              f" failed, each held to the CPU ({res['seconds']:.1f} s)")
+    got = read_counts(main_path=False)
+    print(f"  time  phase 16 {time.perf_counter() - t_phase:.1f} s on {smi}; launches outside the"
+          f" main-path windows: A {got['A']}, B {got['B']}, C {got['C']}, D {got['D']}",
+          flush=True)
+
+
 @contextlib.contextmanager
 def warnings_quiet():
     import warnings
@@ -3714,6 +3795,7 @@ def main() -> int:
     phase_edge(pl, smi, kernels, model, reff, phase5)
     del model
     phase_bench(smi)
+    phase_tools(smi)
 
     for key, kern in kernels.items():
         kern["launches"] = PATH_LAUNCHES[KERNEL_COUNTERS[key]]

@@ -106,12 +106,21 @@ def as_sample_matrix(log_weights):
 
         return matrix, S, rebuild_da
 
-    arr = np.asarray(log_weights)
-    if arr.ndim == 0:
-        raise ValueError("log_weights must have at least one dimension")
-    obs_shape = arr.shape[:-1]
-    S = arr.shape[-1]
-    matrix = torch.from_numpy(np.ascontiguousarray(arr.reshape(-1, S))).to(device, dtype)
+    if isinstance(log_weights, torch.Tensor):
+        # a tensor goes to the device as a tensor: numpy cannot read one on
+        # the card (pyloo_tpu takes a device array the same way)
+        if log_weights.dim() == 0:
+            raise ValueError("log_weights must have at least one dimension")
+        obs_shape = tuple(log_weights.shape[:-1])
+        S = log_weights.shape[-1]
+        matrix = log_weights.detach().reshape(-1, S).to(device, dtype).contiguous()
+    else:
+        arr = np.asarray(log_weights)
+        if arr.ndim == 0:
+            raise ValueError("log_weights must have at least one dimension")
+        obs_shape = arr.shape[:-1]
+        S = arr.shape[-1]
+        matrix = torch.from_numpy(np.ascontiguousarray(arr.reshape(-1, S))).to(device, dtype)
 
     def rebuild_array(lw2d, diag1d):
         lw = None if lw2d is None else np.asarray(lw2d).reshape(obs_shape + (S,))

@@ -1,9 +1,9 @@
 """Leave-one-group-out cross-validation (LOGO-CV).
 
 Counterpart of ``pyloo_tpu/loo_group.py`` (reference
-``pyloo/loo_group.py:19-379``).  The group sums are one ``index_add_`` on the
-device; the per-group IS step runs the LOO scorers over the
-``(n_groups, S)`` matrix.
+``pyloo/loo_group.py:19-379``).  The group sums are made on the device in
+the order of a sequential ``index_add_`` (:func:`add_group_sums`); the
+per-group IS step runs the LOO scorers over the ``(n_groups, S)`` matrix.
 """
 
 from __future__ import annotations
@@ -25,6 +25,71 @@ from .rcparams import rcParams
 from .utils import get_log_likelihood, to_inference_data
 
 __all__ = ["loo_group"]
+
+
+_SLAB = 1 << 25  # values of ``rows`` gathered at once (256 MB of float64)
+
+
+def add_group_sums(out: torch.Tensor, group_index, rows: torch.Tensor) -> torch.Tensor:
+    """Add each row of ``rows`` into ``out[group_index[row]]`` in row order.
+
+    The sums are those of a sequential ``index_add_`` (the CPU's, and
+    ``pyloo_tpu``'s there): ``((out[g] + r_a) + r_b) + ...`` for the rows
+    ``a < b < ...`` of group g.  On the card ``index_add_`` over repeated
+    indices adds with atomics in no fixed order, and ``index_put_`` with
+    ``accumulate`` in an order of its own, so a group sum would round
+    otherwise than on the CPU, and draws whose sums tie would come apart and
+    move the PSIS tail they straddle; there the sums are
+    :func:`ordered_group_sums`.  ``group_index`` is a host integer array; a
+    row whose index is negative is left out.
+    """
+    gi = np.asarray(group_index, dtype=np.int64).reshape(-1)
+    if rows.device.type != "cpu":
+        return ordered_group_sums(out, gi, rows)
+    kept = np.flatnonzero(gi >= 0)
+    if len(kept) < len(gi):
+        rows = rows[torch.from_numpy(kept)]
+    return out.index_add_(0, torch.from_numpy(gi[kept]), rows)
+
+
+def ordered_group_sums(out: torch.Tensor, gi: np.ndarray, rows: torch.Tensor) -> torch.Tensor:
+    """:func:`add_group_sums` on any device, through ``cumsum``.
+
+    The rows are gathered group by group into blocks ``(1 + rounds, groups,
+    S)`` led by the groups' sums so far, and ``cumsum`` over the first axis,
+    which runs as one sequential loop a column (on the card as on the CPU),
+    gives the sums in row order: one block for each distinct group size
+    (groups largest first, so that each round of a block holds a row of
+    each of its groups), cut into slabs of at most ``_SLAB`` values (or one
+    row a group, where a row is wider).  The sorts are made on the rows'
+    device; one copy of the group sizes comes to the host.
+    """
+    index = torch.from_numpy(gi).to(rows.device)
+    by_group = torch.argsort(index, stable=True)[int(np.count_nonzero(gi < 0)):]
+    sizes = torch.bincount(index[by_group], minlength=out.shape[0])
+    largest = torch.argsort(sizes, descending=True, stable=True)
+    starts = (torch.cumsum(sizes, 0) - sizes)[largest]  # each group's first row in by_group
+    sizes = sizes[largest].cpu().numpy()
+    width = rows.shape[1]
+    done = 0  # rounds added: every group's first ``done`` rows
+    # the distinct sizes, smallest first: rounds [done, size) hold the first k groups
+    for k in np.flatnonzero(np.diff(sizes, append=0) < 0)[::-1] + 1:
+        size = int(sizes[k - 1])
+        for g0 in range(0, k, max(1, _SLAB // width)):
+            g = slice(g0, min(k, g0 + max(1, _SLAB // width)))
+            n = g.stop - g.start
+            step = max(1, _SLAB // (n * width))
+            for a in range(done, size, step):
+                b = min(a + step, size)
+                rounds = torch.arange(a, b, device=starts.device)
+                block = rows.index_select(0, by_group[(starts[None, g] + rounds[:, None]).ravel()])
+                block = torch.cat([out.index_select(0, largest[g])[None],
+                                   block.view(b - a, n, width)])
+                if n * width == 1:  # one column: cumsum would take a parallel scan
+                    block = torch.cat([block, torch.zeros_like(block)], dim=2)
+                out.index_copy_(0, largest[g], block.cumsum(0)[-1, :, :width])
+        done = size
+    return out
 
 
 def loo_group(
@@ -81,8 +146,7 @@ def loo_group(
             stacklevel=2,
         )
 
-    index = torch.from_numpy(group_index.reshape(-1).astype(np.int64)).to(matrix.device)
-    group_ll = matrix.new_zeros((n_groups, n_samples)).index_add_(0, index, matrix)
+    group_ll = add_group_sums(matrix.new_zeros((n_groups, n_samples)), group_index, matrix)
     del matrix
 
     return _logo_result(

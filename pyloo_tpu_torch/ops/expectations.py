@@ -70,6 +70,8 @@ def weighted_quantile_batch(x, log_weights, probs):
     shape ``(n_probs, B, S)`` is made.
     """
     B, S = x.shape
+    if isinstance(probs, torch.Tensor):  # numpy cannot read a tensor on the card
+        probs = probs.detach().cpu()
     probs = np.atleast_1d(np.asarray(probs, dtype=np.float64))
     w = _weights(log_weights)
     order = torch.argsort(x, dim=1, stable=True)

@@ -2,10 +2,12 @@
 
 Counterpart of ``loo_group_streaming`` and ``_logo_chunk`` in
 ``pyloo_tpu/streaming.py``: each chunk of the per-observation log-likelihood
-is made on the device (or read from disk) and added with ``index_add_`` into
-an ``(n_groups + 1, n_draws)`` float64 matrix of group sums, whose extra row
-takes the padded rows of a ragged last chunk; the ``(n_obs, n_draws)``
-matrix never exists.  The group-level IS step and the result are
+is made on the device (or read from disk) and added into an
+``(n_groups, n_draws)`` float64 matrix of group sums in row order
+(:func:`pyloo_tpu_torch.loo_group.add_group_sums`: the sums of
+:func:`pyloo_tpu_torch.loo_group`, bit for bit, with no mesh), leaving out
+the padded rows of a ragged last chunk; the ``(n_obs, n_draws)`` matrix
+never exists.  The group-level IS step and the result are
 :func:`pyloo_tpu_torch.loo_group`'s.
 """
 
@@ -18,7 +20,7 @@ import torch
 
 from .._common import compute_device, resolve_scale
 from ..base import ISMethod
-from ..loo_group import _logo_result
+from ..loo_group import _logo_result, add_group_sums
 from ..parallel.sharding import as_mesh
 from . import _chunks
 from .loo import _as_dtype
@@ -93,17 +95,18 @@ def loo_group_streaming(
     make = _chunks.chunk_maker(log_lik_fn, chunk_size, n_obs, n_draws, dtype, shards.devices,
                                "log_lik_fn")
 
-    # segment ids, padded with the overflow group for the ragged tail
-    seg_host = np.full(n_chunks * chunk_size, n_groups, np.int64)
+    # group of each row, -1 (left out) for the padded rows of the ragged tail
+    seg_host = np.full(n_chunks * chunk_size, -1, np.int64)
     seg_host[:n_obs] = group_index.reshape(-1)
-    segs = shards.split(seg_host, torch.int64)
 
-    sums = [torch.zeros((n_groups + 1, n_draws), dtype=_ACC, device=d) for d in shards.devices]
+    sums = [torch.zeros((n_groups, n_draws), dtype=_ACC, device=d) for d in shards.devices]
     for c in range(n_chunks):
         for j, _ in shards:
             with shards.scope(j):
                 idx, _ = shards.indices(c, j)
-                sums[j].index_add_(0, segs[j][shards.part(c)], make(c, j, idx).to(_ACC))
+                start = c * chunk_size + j * shards.rows
+                add_group_sums(sums[j], seg_host[start : start + shards.rows],
+                               make(c, j, idx).to(_ACC))
         if on_chunk is not None:
             on_chunk(c + 1, n_chunks)
     total = sums[0]
@@ -114,5 +117,5 @@ def loo_group_streaming(
         total = total.to(device)
 
     return _logo_result(
-        total[:n_groups], unique_groups, n_draws, reff, scale, scale_value, method, pointwise,
+        total, unique_groups, n_draws, reff, scale, scale_value, method, pointwise,
     )

@@ -33,7 +33,8 @@ for name in ("base", "psis", "sis", "tis", "waic", "loo_i", "e_loo", "loo_predic
              "models.batched_refit", "helpers", "ops.moment_match", "split_moment_match",
              "loo_moment_match", "loo_kfold", "reloo", "models.nuts", "models.chees",
              "models.advi", "models.laplace", "ops.nonfactor", "loo_nonfactor",
-             "parallel", "parallel.sharding", "parallel.witness", "ops.guard"):
+             "parallel", "parallel.sharding", "parallel.witness", "ops.guard",
+             "tools.validate_kernels", "tools.fuzz_differential", "tools.oracle"):
     importlib.import_module("pyloo_tpu_torch." + name)
 
 # the bundled data lie inside the package
@@ -244,6 +245,50 @@ def test_bench_torch_imports_neither_jax_pandas_nor_pyloo_tpu():
     files = sorted((REPO / "bench_torch").rglob("*.py"))
     assert len(files) == 5
     assert [str(p.relative_to(REPO)) for p in files if pattern.search(p.read_text())] == []
+
+
+def test_verification_tools_import_neither_jax_pandas_nor_pyloo_tpu():
+    """The two verification tools (and what they share) import torch, numpy,
+    scipy and the port only: no JAX, pandas or pyloo_tpu, and nothing of
+    chip_smoke.py, bench_torch/ or the tests."""
+    import re
+
+    pattern = re.compile(
+        r"^\s*(import|from)\s+(jax|pandas|pyloo_tpu|chip_smoke|bench_torch|tests)\b",
+        re.MULTILINE)
+    files = [REPO / "pyloo_tpu_torch" / "tools" / name
+             for name in ("validate_kernels.py", "fuzz_differential.py", "oracle.py",
+                          "_harness.py")]
+    assert [str(p.relative_to(REPO)) for p in files if pattern.search(p.read_text())] == []
+
+
+_TOOLS = r"""
+import sys
+for name in ("jax", "pandas", "pyloo_tpu", "chip_smoke", "bench_torch", "tests"):
+    sys.modules[name] = None
+sys.path.insert(0, {repo!r})
+import torch
+from pyloo_tpu_torch.tools import fuzz_differential, validate_kernels
+assert validate_kernels.main(["exact", "--device", "cpu", "--out", "records.json"]) == 0
+assert fuzz_differential.main(["1", "7", "subsample", "--device", "cpu"]) == 0
+if not torch.cuda.is_available():
+    for main, argv in ((validate_kernels.main, ["exact"]), (fuzz_differential.main, ["1"])):
+        try:
+            main(argv)
+        except SystemExit as exit:
+            assert exit.code == 2, exit.code
+        else:
+            raise AssertionError("a tool ran on the CPU without --device cpu")
+print("tools isolated ok")
+"""
+
+
+def test_verification_tools_run_with_jax_pandas_and_pyloo_tpu_blocked(tmp_path):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", _TOOLS.replace("{repo!r}", repr(str(REPO)))],
+                          capture_output=True, text=True, timeout=300, env=env, cwd=tmp_path)
+    assert proc.returncode == 0, proc.stderr
+    assert "tools isolated ok" in proc.stdout
 
 
 _BENCH = r"""
