@@ -1,0 +1,8 @@
+"""The program's reads from the device to the host a traced call, summed
+over its funnels (the ``host_reads`` counter)."""
+
+from benchmark.spans import per_call_counter
+
+
+def read(ctx):
+    return per_call_counter(ctx, "host_reads")

@@ -2780,7 +2780,7 @@ def phase_first_use(pl, smi: str, model, reff: float, phase5: dict, ll_wells) ->
                 torch.cuda.synchronize()
         t.append(time.perf_counter())  # stopped and exported
         launched = read_counts()
-        files = os.listdir(log_dir)
+        files = [f for f in os.listdir(log_dir) if f.startswith("trace_")]
         events = []
         if files:
             with open(os.path.join(log_dir, files[0])) as fh:

@@ -49,8 +49,10 @@ def resolve_scale(scale):
 def _any_rowblock(matrix: torch.Tensor, predicate) -> bool:
     """Whether ``predicate`` holds anywhere, read one block of rows at a time
     so that the mask never spans the whole matrix."""
+    from .base import _host  # base imports this module
+
     rows = max(1, (1 << 28) // max(matrix.shape[1], 1))
-    return bool(torch.stack([predicate(block).any() for block in matrix.split(rows)]).any())
+    return bool(_host(torch.stack([predicate(block).any() for block in matrix.split(rows)]).any()))
 
 
 def clean_log_likelihood(

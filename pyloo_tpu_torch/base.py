@@ -18,6 +18,7 @@ from ._common import compute_device
 from .containers import DataArray
 from .ops import psislw_batch, sislw_batch, tail_length, tislw_batch
 from .parallel import apply_rowwise
+from .profiling import count
 from .rcparams import rcParams
 
 __all__ = ["ISMethod", "as_sample_matrix", "compute_importance_weights"]
@@ -40,6 +41,7 @@ def _compute_dtype() -> torch.dtype:
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
+    count("host_reads", "base._host")
     return t.cpu().numpy()
 
 
@@ -83,6 +85,7 @@ def as_sample_matrix(log_weights):
         lazy = da._lazy
         if lazy is not None and da.dims == target and lazy[0].flags.c_contiguous:
             base, order, n_collapse = lazy
+            count("h2d_bytes", "ingest", base.nbytes)
             v = torch.from_numpy(base).to(device).permute(order)
             lead = int(np.prod(v.shape[: v.dim() - n_collapse]))
             matrix = v.reshape(max(lead, 1), -1).to(dtype).contiguous()
@@ -90,6 +93,7 @@ def as_sample_matrix(log_weights):
             if da.dims != target:
                 da = da.transpose(*target)
             values = da.values.reshape(-1, S) if obs_dims else da.values.reshape(1, S)
+            count("h2d_bytes", "ingest", values.nbytes)
             matrix = torch.from_numpy(np.ascontiguousarray(values)).to(device, dtype)
 
         def rebuild_da(lw2d, diag1d):
@@ -113,6 +117,8 @@ def as_sample_matrix(log_weights):
             raise ValueError("log_weights must have at least one dimension")
         obs_shape = tuple(log_weights.shape[:-1])
         S = log_weights.shape[-1]
+        if log_weights.device.type == "cpu":
+            count("h2d_bytes", "ingest", log_weights.numel() * log_weights.element_size())
         matrix = log_weights.detach().reshape(-1, S).to(device, dtype).contiguous()
     else:
         arr = np.asarray(log_weights)
@@ -120,6 +126,7 @@ def as_sample_matrix(log_weights):
             raise ValueError("log_weights must have at least one dimension")
         obs_shape = arr.shape[:-1]
         S = arr.shape[-1]
+        count("h2d_bytes", "ingest", arr.nbytes)
         matrix = torch.from_numpy(np.ascontiguousarray(arr.reshape(-1, S))).to(device, dtype)
 
     def rebuild_array(lw2d, diag1d):

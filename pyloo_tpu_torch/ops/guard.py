@@ -43,6 +43,8 @@ import threading
 import numpy as np
 import torch
 
+from ..profiling import count
+
 __all__ = ["deep_rows", "by_branch", "per_row", "run_decided", "host_read"]
 
 _STATE = threading.local()
@@ -50,6 +52,7 @@ _STATE = threading.local()
 
 def host_read(flags: torch.Tensor) -> np.ndarray:
     """The guard's one way to the host: ``flags`` as a numpy array."""
+    count("host_reads", "guard.host_read")
     return flags.cpu().numpy()
 
 
@@ -192,5 +195,6 @@ def run_decided(pieces, groups, sink) -> None:
                     mask[max(a, start) - start : max(min(b, stop) - start, 0)] = True
             decisions.append(_uniform(mask))
         if any(d is not False for d in decisions):
+            count("guard_reruns", "run_decided")
             with _in_force(_Plan(decisions)):
                 sink(start, stop, fn())

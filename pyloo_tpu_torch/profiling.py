@@ -6,41 +6,105 @@ computation device is one) and writes it into a directory as a Chrome
 trace (open it in ``chrome://tracing`` or Perfetto); :func:`annotate` names
 a region in it; :class:`Throughput` measures wall-clock rates
 (observations a second) around device work.
+
+The package's own spans and counters record only while a torch profiler
+records, :func:`trace` or any other: :func:`span` names a phase of an entry
+point (``pyloo.loo.ingest``, ``pyloo.chunk.score``, ...) as a host range in
+the profiler's trace, on the clock of the device's activity, and
+:func:`count` adds to a counter (``host_reads`` by the funnel that read,
+``h2d_bytes`` by what was copied, ``guard_reruns``), which
+:func:`counters` reads.  With no profiler recording, each costs one check of
+the profiler's state.
 """
 
 from __future__ import annotations
 
+import contextlib
+import json
 import os
+import threading
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass, field
 
 import torch
 
-from ._common import compute_device
+__all__ = ["trace", "Throughput", "annotate", "span", "count", "counters", "reset_counters"]
 
-__all__ = ["trace", "Throughput", "annotate"]
+_recording = torch._C._autograd._profiler_enabled
+# a host range of the profiler's own kind (not a user annotation, which the
+# profiler mirrors onto the device's timeline as a range of its own); its
+# keyword values are the event's args in the trace
+_range = torch._C._profiler._RecordFunctionFast
+_OFF = contextlib.nullcontext()
+_COUNTERS: dict = {}
+_COUNTERS_LOCK = threading.Lock()
+
+
+def span(name: str, **args):
+    """The phase ``name`` as a host range of the profiler's trace, with
+    ``args`` (the chunk ``c``, the shard ``j``) as the event's args; a
+    shared no-op context when no profiler records."""
+    if not _recording():
+        return _OFF
+    return _range(name, keyword_values=args)
+
+
+def count(counter: str, key: str, n: int = 1) -> None:
+    """Add ``n`` to ``counter[key]`` while a profiler records."""
+    if not _recording():
+        return
+    with _COUNTERS_LOCK:
+        per = _COUNTERS.setdefault(counter, {})
+        per[key] = per.get(key, 0) + n
+
+
+def counters() -> dict:
+    """A copy of every counter: ``{counter: {key: n}}``."""
+    with _COUNTERS_LOCK:
+        return {name: dict(per) for name, per in _COUNTERS.items()}
+
+
+def reset_counters() -> None:
+    with _COUNTERS_LOCK:
+        _COUNTERS.clear()
+
+
+def _counted_since(before: dict) -> dict:
+    out = {}
+    for name, per in counters().items():
+        got = {k: n - before.get(name, {}).get(k, 0) for k, n in per.items()}
+        got = {k: n for k, n in got.items() if n}
+        if got:
+            out[name] = got
+    return out
 
 
 @contextmanager
 def trace(log_dir: str):
     """Record a profile of the block into ``log_dir`` as a Chrome trace.
 
-    The host's operations are always recorded; the CUDA device's kernels
-    and copies too when ``rcParams["device.device"]`` is ``"cuda"``.  The
-    file is ``log_dir/trace_<pid>_<n>.json``; the block's end waits for the
-    device's queued work, so its kernels are in the trace.  A block that
-    raises still writes its trace, and the exception goes on.
+    The host's operations are always recorded, with their input shapes and
+    the args of the package's spans; the CUDA device's kernels and copies
+    too when ``rcParams["device.device"]`` is ``"cuda"``.  The file is
+    ``log_dir/trace_<pid>_<n>.json``, and beside it
+    ``counters_<pid>_<n>.json`` holds what the block added to the package's
+    counters (:func:`counters`).  The block's end waits for the device's
+    queued work, so its kernels are in the trace.  A block that raises
+    still writes both files, and the exception goes on.
 
     >>> with trace("/tmp/loo-trace"):
     ...     loo(idata)
     """
     from torch.profiler import ProfilerActivity, profile
 
+    from ._common import compute_device
+
     cuda = compute_device().type == "cuda"
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     os.makedirs(log_dir, exist_ok=True)
-    prof = profile(activities=activities)
+    prof = profile(activities=activities, record_shapes=True)
+    before = counters()
     try:
         with prof:
             try:
@@ -52,6 +116,8 @@ def trace(log_dir: str):
         n = len([name for name in os.listdir(log_dir)
                  if name.startswith(f"trace_{os.getpid()}_")])
         prof.export_chrome_trace(os.path.join(log_dir, f"trace_{os.getpid()}_{n}.json"))
+        with open(os.path.join(log_dir, f"counters_{os.getpid()}_{n}.json"), "w") as fh:
+            json.dump(_counted_since(before), fh, indent=1, sort_keys=True)
 
 
 def annotate(name: str):

@@ -27,6 +27,7 @@ from ..ops.loo_kernels import (
     loo_scores_tis,
 )
 from ..ops.lse import logsumexp
+from ..profiling import count
 
 __all__ = ["kernel_for", "init_carry", "accumulate_chunk", "mixture_chunk", "combine_carries"]
 
@@ -142,6 +143,7 @@ def combine_carries(carries: list) -> dict:
     device order: sums added, the k maximum and the ESS minimum taken, and
     the mixture normaliser as one log-sum-exp of the shards' own.  One host
     read a device, taken after every device's chunks are queued."""
+    count("host_reads", "combine_carries", len(carries))
     host = [dict(zip(c, torch.stack([v.to(_ACC) for v in c.values()]).tolist()))
             for c in carries]
     out = {}

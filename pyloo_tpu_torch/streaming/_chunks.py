@@ -28,6 +28,7 @@ import torch
 
 from ..ops.guard import run_decided
 from ..parallel.sharding import Mesh, device_scope
+from ..profiling import count, span
 
 __all__ = ["resolve_chunk", "chunk_indices", "generate", "gather_cols", "is_chunk_source",
            "chunk_maker", "SourceChunks", "Shards"]
@@ -107,6 +108,7 @@ class Shards:
         """A host array of ``n_chunks * chunk_size`` rows as shard buffers."""
         n = len(self.devices)
         blocks = host.reshape((self.n_chunks, n, self.rows) + host.shape[1:])
+        count("h2d_bytes", "split", host.nbytes)
         return [torch.from_numpy(np.ascontiguousarray(blocks[:, j]).reshape(
                     (self.n_chunks * self.rows,) + host.shape[1:])).to(d, dtype)
                 for j, d in enumerate(self.devices)]
@@ -114,6 +116,7 @@ class Shards:
     def host(self, buffers: list, n_rows: int | None = None) -> np.ndarray:
         """Shard buffers as one host array in row order, its first ``n_rows``
         rows (default ``n_obs``)."""
+        count("host_reads", "Shards.host", len(buffers))
         parts = [b.cpu().numpy() for b in buffers]
         trailing = parts[0].shape[1:]
         stacked = np.stack([p.reshape((self.n_chunks, self.rows) + trailing) for p in parts],
@@ -154,7 +157,10 @@ class Shards:
         device = self.devices[j]
         key = (id(tensor), str(device))
         if key not in self._copies:
-            self._copies[key] = tensor.to(device)
+            copy = tensor.to(device)
+            if copy is not tensor:
+                count("h2d_bytes", "replica", copy.numel() * copy.element_size())
+            self._copies[key] = copy
         return self._copies[key]
 
 
@@ -260,6 +266,7 @@ class SourceChunks:
             self._copied[self._turn] = {}
             self._src._read_into(c * self._chunk_size, self._staging[self._turn])
         rows = self._staging[self._turn][j * self._rows : (j + 1) * self._rows]
+        count("h2d_bytes", "source", rows.numel() * rows.element_size())
         device = self._devices[j]
         if device.type != "cuda":
             return rows.to(self._dtype, copy=True)
@@ -277,11 +284,19 @@ def chunk_maker(fn, chunk_size: int, n_obs: int, n_draws: int, dtype: torch.dtyp
     called on the shard's indices ``idx`` or a disk chunk source read at row
     ``c * chunk_size``, as a ``(rows, n_draws)`` tensor of ``dtype`` on
     ``devices[j]`` (``devices`` a device or a tuple of them, one a shard;
-    ``rows`` is ``chunk_size`` over their number)."""
+    ``rows`` is ``chunk_size`` over their number).  Each call is a
+    ``pyloo.chunk.generate`` span with the chunk and the shard as its args."""
     if isinstance(devices, torch.device):
         devices = (devices,)
     rows = chunk_size // len(devices)
     if is_chunk_source(fn):
         chunks = SourceChunks(fn, chunk_size, n_obs, n_draws, dtype, devices, name)
-        return lambda c, j, idx: chunks(c, j)
-    return lambda c, j, idx: generate(fn, idx, (rows, n_draws), dtype, name)
+        read = lambda c, j, idx: chunks(c, j)  # noqa: E731
+    else:
+        read = lambda c, j, idx: generate(fn, idx, (rows, n_draws), dtype, name)  # noqa: E731
+
+    def make(c, j, idx):
+        with span("pyloo.chunk.generate", c=c, j=j):
+            return read(c, j, idx)
+
+    return make

@@ -48,6 +48,7 @@ from ..containers import DataArray
 from ..loo import _assemble
 from ..ops import tail_length
 from ..parallel.sharding import as_mesh
+from ..profiling import count, span
 from ..rcparams import rcParams
 from . import _accumulate, _checkpoint, _chunks
 
@@ -187,194 +188,204 @@ def loo_streaming(
     -------
     ELPDData with the same rows as :func:`pyloo_tpu_torch.loo`.
     """
-    method = ISMethod(method.lower() if isinstance(method, str) else method)
-    scale, scale_value = resolve_scale(scale)
-    if n_draws < 2:
-        raise ValueError("PSIS requires at least 2 draws per observation.")
-    if n_obs < 1:
-        raise ValueError("n_obs must be positive.")
-    mesh = as_mesh(mesh, "loo_streaming")
+    with span("pyloo.loo_streaming"):
+        method = ISMethod(method.lower() if isinstance(method, str) else method)
+        scale, scale_value = resolve_scale(scale)
+        if n_draws < 2:
+            raise ValueError("PSIS requires at least 2 draws per observation.")
+        if n_obs < 1:
+            raise ValueError("n_obs must be positive.")
+        mesh = as_mesh(mesh, "loo_streaming")
 
-    device = compute_device()
-    dtype = _as_dtype(dtype)
-    dtype_name = str(dtype).removeprefix("torch.")
-    chunk_size, n_chunks = _chunks.resolve_chunk(chunk_size, n_obs, n_draws, dtype, mesh=mesh)
-    tail_max = tail_length(n_draws, reff)
-    shards = _chunks.Shards(mesh, chunk_size, n_chunks, n_obs, device)
+        device = compute_device()
+        dtype = _as_dtype(dtype)
+        dtype_name = str(dtype).removeprefix("torch.")
+        chunk_size, n_chunks = _chunks.resolve_chunk(chunk_size, n_obs, n_draws, dtype, mesh=mesh)
+        tail_max = tail_length(n_draws, reff)
+        shards = _chunks.Shards(mesh, chunk_size, n_chunks, n_obs, device)
 
-    good_k = good_k_threshold(n_draws)
-    if mixture:
-        warnings.warn(
-            "Mix-IS-LOO requires a model that is sampled from a mixture of"
-            " leave-one-out posteriors. Ensure the log-likelihood generator"
-            " passed to `loo_streaming` comes from a model that is sampled"
-            " from such a distribution.",
-            UserWarning,
-            stacklevel=2,
-        )
-    carries = [_accumulate.init_carry(method, mixture, dtype, good_k, d) for d in shards.devices]
-
-    bufs_e = bufs_d = None
-    if pointwise:
-        bufs_e, bufs_d = shards.buffers(dtype), shards.buffers(dtype)
-
-    if checkpoint_path is not None and checkpoint_every < 1:
-        raise ValueError("checkpoint_every must be a positive chunk count")
-    col_idx = None
-    if _column_gather is not None:
-        col_idx = torch.as_tensor(np.asarray(_column_gather), dtype=torch.int64, device=device)
-
-    geometry = dict(
-        n_obs=n_obs, n_draws=n_draws, chunk_size=chunk_size,
-        method=method.value, dtype=dtype_name, pointwise=int(pointwise),
-        scale=scale, mixture=int(mixture),
-        jacobian=int(jacobian_fn is not None),
-        colgather=(
-            0 if _column_gather is None
-            else zlib.crc32(np.ascontiguousarray(_column_gather, np.int64).tobytes())
-        ),
-    )
-
-    start_chunk = 0
-    if checkpoint_path is not None:
-        loaded = _checkpoint.load_checkpoint(checkpoint_path, geometry, shards.devices[0])
-        if loaded is not None:
-            start_chunk = loaded["chunk"]
-            carries[0] = loaded["carry"]  # the other shards' carries start afresh
-            if pointwise:
-                bufs_e = shards.split(loaded["buf_e"].cpu().numpy(), dtype)
-                bufs_d = shards.split(loaded["buf_d"].cpu().numpy(), dtype)
-
-    # One host loop of queued device work chained by the carries; no device
-    # value is read until the end (checkpoint saves aside) but, in float64,
-    # the deep-tail guard's flags of each chunk, once, after every shard of
-    # the chunk is queued.  Every shard of a chunk is queued on its device
-    # before the next chunk.
-    make = _chunks.chunk_maker(log_lik_fn, chunk_size, n_obs, n_draws, dtype, shards.devices,
-                               "log_lik_fn")
-    for c in range(start_chunk, n_chunks):
-
-        def work(j, c=c):
-            idx, valid = shards.indices(c, j)
-            ll = make(c, j, idx)
-            if col_idx is not None:
-                ll = _chunks.gather_cols(ll, shards.on(col_idx, j))
-            adj = None
-            if jacobian_fn is not None:
-                # adjustments arrive in scaled-elpd units; store them in raw
-                # elpd units so they fold into the standard sums (scale_value
-                # is one of {1, -1, -2}: the division is exact)
-                adj = _chunks.generate(jacobian_fn, idx, (shards.rows,), dtype, "jacobian_fn")
-                adj = adj / scale_value
-            carry = carries[j]
-            if mixture:
-                return lambda: _accumulate.mixture_chunk(ll, valid, carry, adj)
-            return lambda: _accumulate.accumulate_chunk(ll, valid, carry, adj, method=method,
-                                                        tail_max=tail_max)
-
-        for j, (carries[j], elpd_i, diag) in enumerate(shards.decided(work)):
-            if pointwise:
-                with shards.scope(j):
-                    bufs_e[j][shards.part(c)] = elpd_i
-                    bufs_d[j][shards.part(c)] = diag.to(dtype)
-        if checkpoint_path is not None and (c + 1) % checkpoint_every == 0:
-            _save(checkpoint_path, geometry, c + 1, carries, shards, bufs_e, bufs_d)
-        if on_chunk is not None:
-            on_chunk(c + 1, n_chunks)
-    out = _accumulate.combine_carries(carries)
-    if checkpoint_path is not None:
-        with contextlib.suppress(OSError):
-            os.remove(checkpoint_path)
-    elpd_i_host = diag_host = None
-    if pointwise:
-        elpd_i_host = shards.host(bufs_e)
-        diag_host = shards.host(bufs_d)
-
-    if mixture:
-        # elpd_i = log_norm - log_obs_i, so the sums close in terms of the
-        # accumulated sum_lo / sum_lo2 and the final normalizer
-        log_norm = out["log_norm"]
-        sum_lo = out["sum_lo"]
-        sum_e = n_obs * log_norm - sum_lo
-        sum_e2 = n_obs * log_norm**2 - 2.0 * log_norm * sum_lo + out["sum_lo2"]
-    else:
-        sum_e = out["sum_e"]
-        sum_e2 = out["sum_e2"]
-    lppd = out["sum_lppd"]
-    var_e = max(sum_e2 / n_obs - (sum_e / n_obs) ** 2, 0.0)
-
-    warn_mg = False
-    n_degenerate = int(out.get("n_degen", 0))
-    if n_degenerate:
-        warnings.warn(
-            f"The float32 fast path left {n_degenerate} observations"
-            " unsmoothed because their generalized Pareto fit was degenerate"
-            " (sigma <= 0). Recompute with dtype=float64 for reference-exact"
-            " handling of these observations.",
-            UserWarning,
-            stacklevel=2,
-        )
-    if mixture:
-        pass  # no importance weights were formed, so no IS diagnostics
-    elif method == ISMethod.PSIS:
-        if out["n_bad"] > 0:
-            warnings.warn(
-                "Estimated shape parameter of Pareto distribution is greater"
-                f" than {good_k:.2f} for {out['n_bad']} observations."
-                " This indicates that importance sampling may be unreliable"
-                " because the marginal posterior and LOO posterior are very"
-                " different.",
-                UserWarning,
-                stacklevel=2,
-            )
-            warn_mg = True
-    else:
-        min_ess = out["diag_min"]
-        if min_ess < n_draws * 0.1:
-            warnings.warn(
-                f"Low effective sample size detected (minimum ESS:"
-                f" {min_ess:.1f}). This indicates that the importance sampling"
-                " approximation may be unreliable. Consider using PSIS which"
-                " is more robust to such cases.",
-                UserWarning,
-                stacklevel=2,
-            )
-            warn_mg = True
-
-    loo_lppd = scale_value * sum_e
-    loo_lppd_se = abs(scale_value) * float((n_obs * var_e) ** 0.5)
-    p_loo = lppd - loo_lppd / scale_value
-    # as loo(): sqrt of the population variance of the *scaled* loo_i
-    p_loo_se = abs(scale_value) * float(np.sqrt(var_e))
-    looic = -2 * loo_lppd
-    looic_se = 2 * loo_lppd_se
-
-    loo_lppd_i = diagnostic = None
-    if pointwise:
+        good_k = good_k_threshold(n_draws)
         if mixture:
-            # the buffers hold log_obs_i (the normalizer closes only after
-            # the full pass); diag_host is already all zeros
-            elpd_i_host = log_norm - elpd_i_host
-        loo_lppd_i = DataArray(scale_value * elpd_i_host, ("obs",), name="loo_i")
-        diagnostic = DataArray(
-            diag_host,
-            ("obs",),
-            name="pareto_k" if mixture or method == ISMethod.PSIS else "ess",
+            warnings.warn(
+                "Mix-IS-LOO requires a model that is sampled from a mixture of"
+                " leave-one-out posteriors. Ensure the log-likelihood generator"
+                " passed to `loo_streaming` comes from a model that is sampled"
+                " from such a distribution.",
+                UserWarning,
+                stacklevel=2,
+            )
+        carries = [_accumulate.init_carry(method, mixture, dtype, good_k, d)
+                   for d in shards.devices]
+
+        bufs_e = bufs_d = None
+        if pointwise:
+            bufs_e, bufs_d = shards.buffers(dtype), shards.buffers(dtype)
+
+        if checkpoint_path is not None and checkpoint_every < 1:
+            raise ValueError("checkpoint_every must be a positive chunk count")
+        col_idx = None
+        if _column_gather is not None:
+            count("h2d_bytes", "indices", np.asarray(_column_gather).size * 8)
+            col_idx = torch.as_tensor(np.asarray(_column_gather), dtype=torch.int64, device=device)
+
+        geometry = dict(
+            n_obs=n_obs, n_draws=n_draws, chunk_size=chunk_size,
+            method=method.value, dtype=dtype_name, pointwise=int(pointwise),
+            scale=scale, mixture=int(mixture),
+            jacobian=int(jacobian_fn is not None),
+            colgather=(
+                0 if _column_gather is None
+                else zlib.crc32(np.ascontiguousarray(_column_gather, np.int64).tobytes())
+            ),
         )
 
-    result = _assemble(
-        mixture, loo_lppd, loo_lppd_se, p_loo, p_loo_se, n_draws, n_obs,
-        warn_mg, scale, looic, looic_se,
-        loo_lppd_i=loo_lppd_i, diagnostic=diagnostic,
-        method=method,
-        good_k=good_k if mixture or method == ISMethod.PSIS else None,
-    )
-    result.fast_path_degenerate = n_degenerate
-    if mixture and jacobian_fn is not None:
-        # parity with loo(): its jacobian block re-derives these rows
-        # unconditionally, appending them to the mixture layout in this order
-        result["p_loo"] = p_loo
-        result["p_loo_se"] = p_loo_se
-        result["looic"] = looic
-        result["looic_se"] = looic_se
-    return result
+        start_chunk = 0
+        if checkpoint_path is not None:
+            loaded = _checkpoint.load_checkpoint(checkpoint_path, geometry, shards.devices[0])
+            if loaded is not None:
+                start_chunk = loaded["chunk"]
+                carries[0] = loaded["carry"]  # the other shards' carries start afresh
+                if pointwise:
+                    bufs_e = shards.split(loaded["buf_e"].cpu().numpy(), dtype)
+                    bufs_d = shards.split(loaded["buf_d"].cpu().numpy(), dtype)
+
+        # One host loop of queued device work chained by the carries; no device
+        # value is read until the end (checkpoint saves aside) but, in float64,
+        # the deep-tail guard's flags of each chunk, once, after every shard of
+        # the chunk is queued.  Every shard of a chunk is queued on its device
+        # before the next chunk.
+        make = _chunks.chunk_maker(log_lik_fn, chunk_size, n_obs, n_draws, dtype, shards.devices,
+                                   "log_lik_fn")
+        for c in range(start_chunk, n_chunks):
+
+            def work(j, c=c):
+                idx, valid = shards.indices(c, j)
+                ll = make(c, j, idx)
+                if col_idx is not None:
+                    ll = _chunks.gather_cols(ll, shards.on(col_idx, j))
+                adj = None
+                if jacobian_fn is not None:
+                    # adjustments arrive in scaled-elpd units; store them in raw
+                    # elpd units so they fold into the standard sums (scale_value
+                    # is one of {1, -1, -2}: the division is exact)
+                    adj = _chunks.generate(jacobian_fn, idx, (shards.rows,), dtype, "jacobian_fn")
+                    adj = adj / scale_value
+                carry = carries[j]
+
+                def score():
+                    with span("pyloo.chunk.score", c=c, j=j):
+                        if mixture:
+                            return _accumulate.mixture_chunk(ll, valid, carry, adj)
+                        return _accumulate.accumulate_chunk(ll, valid, carry, adj, method=method,
+                                                            tail_max=tail_max)
+
+                return score
+
+            for j, (carries[j], elpd_i, diag) in enumerate(shards.decided(work)):
+                if pointwise:
+                    with shards.scope(j):
+                        bufs_e[j][shards.part(c)] = elpd_i
+                        bufs_d[j][shards.part(c)] = diag.to(dtype)
+            if checkpoint_path is not None and (c + 1) % checkpoint_every == 0:
+                _save(checkpoint_path, geometry, c + 1, carries, shards, bufs_e, bufs_d)
+            if on_chunk is not None:
+                on_chunk(c + 1, n_chunks)
+        with span("pyloo.stream.readback"):
+            out = _accumulate.combine_carries(carries)
+            if checkpoint_path is not None:
+                with contextlib.suppress(OSError):
+                    os.remove(checkpoint_path)
+            elpd_i_host = diag_host = None
+            if pointwise:
+                elpd_i_host = shards.host(bufs_e)
+                diag_host = shards.host(bufs_d)
+
+        with span("pyloo.stream.assemble"):
+            if mixture:
+                # elpd_i = log_norm - log_obs_i, so the sums close in terms of the
+                # accumulated sum_lo / sum_lo2 and the final normalizer
+                log_norm = out["log_norm"]
+                sum_lo = out["sum_lo"]
+                sum_e = n_obs * log_norm - sum_lo
+                sum_e2 = n_obs * log_norm**2 - 2.0 * log_norm * sum_lo + out["sum_lo2"]
+            else:
+                sum_e = out["sum_e"]
+                sum_e2 = out["sum_e2"]
+            lppd = out["sum_lppd"]
+            var_e = max(sum_e2 / n_obs - (sum_e / n_obs) ** 2, 0.0)
+
+            warn_mg = False
+            n_degenerate = int(out.get("n_degen", 0))
+            if n_degenerate:
+                warnings.warn(
+                    f"The float32 fast path left {n_degenerate} observations"
+                    " unsmoothed because their generalized Pareto fit was degenerate"
+                    " (sigma <= 0). Recompute with dtype=float64 for reference-exact"
+                    " handling of these observations.",
+                    UserWarning,
+                    stacklevel=2,
+                )
+            if mixture:
+                pass  # no importance weights were formed, so no IS diagnostics
+            elif method == ISMethod.PSIS:
+                if out["n_bad"] > 0:
+                    warnings.warn(
+                        "Estimated shape parameter of Pareto distribution is greater"
+                        f" than {good_k:.2f} for {out['n_bad']} observations."
+                        " This indicates that importance sampling may be unreliable"
+                        " because the marginal posterior and LOO posterior are very"
+                        " different.",
+                        UserWarning,
+                        stacklevel=2,
+                    )
+                    warn_mg = True
+            else:
+                min_ess = out["diag_min"]
+                if min_ess < n_draws * 0.1:
+                    warnings.warn(
+                        f"Low effective sample size detected (minimum ESS:"
+                        f" {min_ess:.1f}). This indicates that the importance sampling"
+                        " approximation may be unreliable. Consider using PSIS which"
+                        " is more robust to such cases.",
+                        UserWarning,
+                        stacklevel=2,
+                    )
+                    warn_mg = True
+
+            loo_lppd = scale_value * sum_e
+            loo_lppd_se = abs(scale_value) * float((n_obs * var_e) ** 0.5)
+            p_loo = lppd - loo_lppd / scale_value
+            # as loo(): sqrt of the population variance of the *scaled* loo_i
+            p_loo_se = abs(scale_value) * float(np.sqrt(var_e))
+            looic = -2 * loo_lppd
+            looic_se = 2 * loo_lppd_se
+
+            loo_lppd_i = diagnostic = None
+            if pointwise:
+                if mixture:
+                    # the buffers hold log_obs_i (the normalizer closes only after
+                    # the full pass); diag_host is already all zeros
+                    elpd_i_host = log_norm - elpd_i_host
+                loo_lppd_i = DataArray(scale_value * elpd_i_host, ("obs",), name="loo_i")
+                diagnostic = DataArray(
+                    diag_host,
+                    ("obs",),
+                    name="pareto_k" if mixture or method == ISMethod.PSIS else "ess",
+                )
+
+            result = _assemble(
+                mixture, loo_lppd, loo_lppd_se, p_loo, p_loo_se, n_draws, n_obs,
+                warn_mg, scale, looic, looic_se,
+                loo_lppd_i=loo_lppd_i, diagnostic=diagnostic,
+                method=method,
+                good_k=good_k if mixture or method == ISMethod.PSIS else None,
+            )
+            result.fast_path_degenerate = n_degenerate
+            if mixture and jacobian_fn is not None:
+                # parity with loo(): its jacobian block re-derives these rows
+                # unconditionally, appending them to the mixture layout in this order
+                result["p_loo"] = p_loo
+                result["p_loo_se"] = p_loo_se
+                result["looic"] = looic
+                result["looic_se"] = looic_se
+        return result

@@ -23,6 +23,7 @@ from ..loo_approximate_posterior import _validated_resample_indices, _warn_non_p
 from ..loo_subsample import _score_sampled, _subsample_result
 from ..ops.lse import logsumexp
 from ..parallel.sharding import as_mesh
+from ..profiling import count, span
 from . import _chunks
 from .loo import _as_dtype, loo_streaming
 
@@ -34,7 +35,9 @@ def _sampled_rows(log_lik_fn, idx: np.ndarray, n_draws: int, device) -> torch.Te
     device: one generator call, or the disk source's random-access read."""
     if _chunks.is_chunk_source(log_lik_fn):
         rows = torch.from_numpy(log_lik_fn.gather_rows(idx))
+        count("h2d_bytes", "source", rows.numel() * rows.element_size())
         return rows.to(device).to(torch.float64)
+    count("h2d_bytes", "indices", idx.size * 8)
     idx_t = torch.as_tensor(idx, dtype=torch.int64, device=device)
     return _chunks.generate(log_lik_fn, idx_t, (len(idx), n_draws), torch.float64, "log_lik_fn")
 
@@ -74,102 +77,109 @@ def loo_subsample_streaming(
     ``result.estimates.stream``; ``del result.estimates.stream`` releases
     both if you will not update.
     """
-    if estimator is None:
-        estimator = "diff_srs"
-    try:
-        est_method = EstimatorMethod(estimator.lower())
-    except ValueError:
-        raise ValueError(
-            f"Invalid estimator '{estimator}'. "
-            f"Must be one of: {', '.join(m.value for m in EstimatorMethod)}"
-        )
-    scale, scale_value = resolve_scale(scale)
-    if n_draws < 2:
-        raise ValueError("PSIS requires at least 2 draws per observation.")
-    if n_obs < 1:
-        raise ValueError("n_obs must be positive.")
-    mesh = as_mesh(mesh, "loo_subsample_streaming")
-    device = compute_device()
-    dtype = _as_dtype(dtype)
-
-    if isinstance(observations, (int, np.integer)):
-        if observations <= 0 or observations > n_obs:
+    with span("pyloo.loo_subsample_streaming"):
+        if estimator is None:
+            estimator = "diff_srs"
+        try:
+            est_method = EstimatorMethod(estimator.lower())
+        except ValueError:
             raise ValueError(
-                f"Number of observations must be between 1 and {n_obs}, "
-                f"got {observations}"
+                f"Invalid estimator '{estimator}'. "
+                f"Must be one of: {', '.join(m.value for m in EstimatorMethod)}"
             )
-    elif isinstance(observations, np.ndarray):
-        if not np.issubdtype(observations.dtype, np.integer):
-            raise TypeError("observations array must contain integers")
-        if observations.min() < 0 or observations.max() >= n_obs:
-            raise ValueError(
-                f"Observation indices must be between 0 and {n_obs - 1}, "
-                f"got range [{observations.min()}, {observations.max()}]"
+        scale, scale_value = resolve_scale(scale)
+        if n_draws < 2:
+            raise ValueError("PSIS requires at least 2 draws per observation.")
+        if n_obs < 1:
+            raise ValueError("n_obs must be positive.")
+        mesh = as_mesh(mesh, "loo_subsample_streaming")
+        device = compute_device()
+        dtype = _as_dtype(dtype)
+
+        if isinstance(observations, (int, np.integer)):
+            if observations <= 0 or observations > n_obs:
+                raise ValueError(
+                    f"Number of observations must be between 1 and {n_obs}, "
+                    f"got {observations}"
+                )
+        elif isinstance(observations, np.ndarray):
+            if not np.issubdtype(observations.dtype, np.integer):
+                raise TypeError("observations array must contain integers")
+            if observations.min() < 0 or observations.max() >= n_obs:
+                raise ValueError(
+                    f"Observation indices must be between 0 and {n_obs - 1}, "
+                    f"got range [{observations.min()}, {observations.max()}]"
+                )
+        else:
+            raise TypeError("observations must be an integer or an array of integers")
+
+        chunk_size, n_chunks = _chunks.resolve_chunk(chunk_size, n_obs, n_draws, dtype, mesh=mesh)
+
+        # -- cheap approximation for every observation (streamed LPD) ------------
+        if elpd_loo_approximation is not None:
+            elpd_loo_approx = np.asarray(elpd_loo_approximation, np.float64).ravel()
+            if elpd_loo_approx.shape[0] != n_obs:
+                raise ValueError(
+                    f"elpd_loo_approximation must have length {n_obs}, "
+                    f"got {elpd_loo_approx.shape[0]}"
+                )
+        else:
+            with span("pyloo.subsample.lpd"):
+                shards = _chunks.Shards(mesh, chunk_size, n_chunks, n_obs, device)
+                make = _chunks.chunk_maker(log_lik_fn, chunk_size, n_obs, n_draws, dtype,
+                                           shards.devices, "log_lik_fn")
+                bufs = shards.buffers(dtype)
+                for c in range(n_chunks):
+                    for j, _ in shards:
+                        with shards.scope(j):
+                            idx, _ = shards.indices(c, j)
+                            bufs[j][shards.part(c)] = logsumexp(make(c, j, idx), dim=1,
+                                                                b_inv=n_draws)
+            with span("pyloo.subsample.readback"):
+                elpd_loo_approx = shards.host(bufs).astype(np.float64)
+
+        # -- draw the subsample ---------------------------------------------------
+        with span("pyloo.subsample.draw"):
+            if isinstance(observations, np.ndarray):
+                indices = SubsampleIndices(idx=observations, m_i=np.ones_like(observations))
+            else:
+                rng = np.random.default_rng(seed) if seed is not None else None
+                indices = subsample_indices(
+                    estimator=est_method.value,
+                    elpd_loo_approximation=elpd_loo_approx,
+                    observations=int(observations),
+                    rng=rng,
+                )
+
+        # -- exact float64 PSIS-LOO on the m sampled rows, and the estimates ------
+        with span("pyloo.subsample.exact_rows"):
+            ll_sample = _sampled_rows(log_lik_fn, np.asarray(indices.idx), n_draws, device)
+            loo_lppd_i, diagnostic, p_loo_values = _score_sampled(
+                ll_sample, reff, scale_value, mesh, decide_over="call"
             )
-    else:
-        raise TypeError("observations must be an integer or an array of integers")
-
-    chunk_size, n_chunks = _chunks.resolve_chunk(chunk_size, n_obs, n_draws, dtype, mesh=mesh)
-
-    # -- cheap approximation for every observation (streamed LPD) ------------
-    if elpd_loo_approximation is not None:
-        elpd_loo_approx = np.asarray(elpd_loo_approximation, np.float64).ravel()
-        if elpd_loo_approx.shape[0] != n_obs:
-            raise ValueError(
-                f"elpd_loo_approximation must have length {n_obs}, "
-                f"got {elpd_loo_approx.shape[0]}"
+            del ll_sample
+        with span("pyloo.subsample.estimate"):
+            loo_lppd_i_full = None
+            if pointwise:
+                loo_lppd_i_full = np.full(n_obs, np.nan)
+                loo_lppd_i_full[indices.idx] = loo_lppd_i
+            result = _subsample_result(
+                est_method, elpd_loo_approx, indices, loo_lppd_i, diagnostic, p_loo_values,
+                n_draws, n_obs, scale, loo_lppd_i_full,
             )
-    else:
-        shards = _chunks.Shards(mesh, chunk_size, n_chunks, n_obs, device)
-        make = _chunks.chunk_maker(log_lik_fn, chunk_size, n_obs, n_draws, dtype,
-                                   shards.devices, "log_lik_fn")
-        bufs = shards.buffers(dtype)
-        for c in range(n_chunks):
-            for j, _ in shards:
-                with shards.scope(j):
-                    idx, _ = shards.indices(c, j)
-                    bufs[j][shards.part(c)] = logsumexp(make(c, j, idx), dim=1, b_inv=n_draws)
-        elpd_loo_approx = shards.host(bufs).astype(np.float64)
-
-    # -- draw the subsample ---------------------------------------------------
-    if isinstance(observations, np.ndarray):
-        indices = SubsampleIndices(idx=observations, m_i=np.ones_like(observations))
-    else:
-        rng = np.random.default_rng(seed) if seed is not None else None
-        indices = subsample_indices(
-            estimator=est_method.value,
-            elpd_loo_approximation=elpd_loo_approx,
-            observations=int(observations),
-            rng=rng,
-        )
-
-    # -- exact float64 PSIS-LOO on the m sampled rows, and the estimates ------
-    ll_sample = _sampled_rows(log_lik_fn, np.asarray(indices.idx), n_draws, device)
-    loo_lppd_i, diagnostic, p_loo_values = _score_sampled(
-        ll_sample, reff, scale_value, mesh, decide_over="call"
-    )
-    del ll_sample
-    loo_lppd_i_full = None
-    if pointwise:
-        loo_lppd_i_full = np.full(n_obs, np.nan)
-        loo_lppd_i_full[indices.idx] = loo_lppd_i
-    result = _subsample_result(
-        est_method, elpd_loo_approx, indices, loo_lppd_i, diagnostic, p_loo_values,
-        n_draws, n_obs, scale, loo_lppd_i_full,
-    )
-    result.estimates.loo_approximation = (
-        "custom" if elpd_loo_approximation is not None else "lpd"
-    )
-    result.estimates.estimator = est_method.value
-    # the stream's parameters let update_subsample() dispatch here again,
-    # reusing the (n_obs,) approximation so an update makes only the new
-    # subsample's rows
-    result.estimates.stream = dict(
-        log_lik_fn=log_lik_fn, n_obs=n_obs, n_draws=n_draws,
-        elpd_loo_approximation=elpd_loo_approx, reff=reff,
-        chunk_size=chunk_size, dtype=dtype, mesh=mesh,
-    )
-    return result
+            result.estimates.loo_approximation = (
+                "custom" if elpd_loo_approximation is not None else "lpd"
+            )
+            result.estimates.estimator = est_method.value
+            # the stream's parameters let update_subsample() dispatch here again,
+            # reusing the (n_obs,) approximation so an update makes only the new
+            # subsample's rows
+            result.estimates.stream = dict(
+                log_lik_fn=log_lik_fn, n_obs=n_obs, n_draws=n_draws,
+                elpd_loo_approximation=elpd_loo_approx, reff=reff,
+                chunk_size=chunk_size, dtype=dtype, mesh=mesh,
+            )
+        return result
 
 
 def loo_approximate_posterior_streaming(

@@ -4,8 +4,9 @@
 dict but for ``wall_s`` and ``compilation_cache`` (here: whether the CUDA
 kernel library was loaded rather than built; on the CPU no library is
 used).  A ``loo_streaming`` call after it equals one without it.
-``trace`` writes a Chrome trace that names the ``annotate`` regions;
-``Throughput`` does ``pyloo_tpu``'s arithmetic.
+``trace`` writes a Chrome trace that names the ``annotate`` regions, and
+the package's counters beside it; ``Throughput`` does ``pyloo_tpu``'s
+arithmetic.
 """
 
 import importlib
@@ -126,9 +127,9 @@ def test_trace_writes_its_file_when_the_block_raises(tmp_path):
             with tprof.annotate("before_the_fault"):
                 tpl.loo_streaming(lambda idx: ll[idx], 64, 40, chunk_size=32)
             1 / 0
-    files = os.listdir(tmp_path)
-    assert len(files) == 1 and files[0].startswith(f"trace_{os.getpid()}_")
-    events = json.loads((tmp_path / files[0]).read_text())["traceEvents"]
+    pid = os.getpid()
+    assert sorted(os.listdir(tmp_path)) == [f"counters_{pid}_0.json", f"trace_{pid}_0.json"]
+    events = json.loads((tmp_path / f"trace_{pid}_0.json").read_text())["traceEvents"]
     assert any(e.get("name") == "before_the_fault" for e in events)
 
 
@@ -146,14 +147,15 @@ def test_trace_writes_a_chrome_trace_naming_the_annotation(tmp_path):
     with tprof.trace(str(tmp_path)):
         with tprof.annotate("loo_streaming"):
             tpl.loo_streaming(lambda idx: ll[idx], 64, 40, chunk_size=32)
-    files = os.listdir(tmp_path)
-    assert len(files) == 1 and files[0].startswith(f"trace_{os.getpid()}_")
-    events = json.loads((tmp_path / files[0]).read_text())["traceEvents"]
+    pid = os.getpid()
+    assert sorted(os.listdir(tmp_path)) == [f"counters_{pid}_0.json", f"trace_{pid}_0.json"]
+    events = json.loads((tmp_path / f"trace_{pid}_0.json").read_text())["traceEvents"]
     assert any(e.get("name") == "loo_streaming" for e in events)
-    # a second trace into the same directory gets a file of its own
+    # a second trace into the same directory gets files of its own
     with tprof.trace(str(tmp_path)):
         torch.ones(3).sum()
-    assert len(os.listdir(tmp_path)) == 2
+    assert sorted(os.listdir(tmp_path)) == [f"counters_{pid}_0.json", f"counters_{pid}_1.json",
+                                            f"trace_{pid}_0.json", f"trace_{pid}_1.json"]
 
 
 def test_throughput_arithmetic_equals_pyloo_tpu(monkeypatch):
