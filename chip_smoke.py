@@ -236,31 +236,40 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # kernel key -> the name of its launch counter
 KERNEL_COUNTERS = {"loo_prepass": "A", "topk_desc": "B", "topk_reshape": "C",
-                   "topk_natural": "D", "topk_profile": "E"}
-PATH_LAUNCHES = dict.fromkeys("ABCDE", 0)  # summed over the main-path windows
+                   "topk_natural": "D", "topk_profile": "E", "psis_tail_fit": "F"}
+PATH_LAUNCHES = dict.fromkeys("ABCDEF", 0)  # summed over the main-path windows
+# lane instructions a second outside the tensor cores (the float32 rate's
+# fused multiply-adds counted once), and the instructions of one candidate
+# term of the tail fit: an accurate expf (~10), log1pf or expm1f and logf
+# (~25) and the term's adds, abs and max (~5)
+F32_INSTR_PER_S = 33.5e12
+FIT_TERM_INSTR = 40
 
 
 def zero_counts() -> None:
     """Set every kernel launch counter to 0 (just before a main path)."""
     from pyloo_tpu_torch.ops import topk
+    from pyloo_tpu_torch.ops.loo_kernels import psis_tail_fit
     from pyloo_tpu_torch.ops.topk_profile import profile_topk_desc
 
     topk.loo_prepass.launches = 0
     for variant in topk.topk_desc.launches:
         topk.topk_desc.launches[variant] = 0
     profile_topk_desc.launches = 0
+    psis_tail_fit.launches = 0
 
 
 def read_counts(main_path: bool = True) -> dict:
     """The launch counters (just after a main path), added to PATH_LAUNCHES
     when the window was a main path's."""
     from pyloo_tpu_torch.ops import topk
+    from pyloo_tpu_torch.ops.loo_kernels import psis_tail_fit
     from pyloo_tpu_torch.ops.topk_profile import profile_topk_desc
 
     by_variant = topk.topk_desc.launches
     got = {"A": topk.loo_prepass.launches, "B": by_variant["roll"],
            "C": by_variant["reshape"], "D": by_variant["natural"],
-           "E": profile_topk_desc.launches}
+           "E": profile_topk_desc.launches, "F": psis_tail_fit.launches}
     if main_path:
         for name, n in got.items():
             PATH_LAUNCHES[name] += n
@@ -489,6 +498,49 @@ def phase_kernels(kernels: dict, tail_length) -> None:
           f" log_sum_ll {errs[3]:.3g}")
 
 
+def fit_bound(rows: int, m: int):
+    """Kernel F reads M + 1 values and two scalars a row and writes three;
+    each of the 30 + isqrt(M) candidates, and the posterior mean, takes one
+    term a tail value (:data:`FIT_TERM_INSTR` instructions)."""
+    t_bytes = (4.0 * rows * (m + 3) + 9.0 * rows) / HBM_BYTES_PER_S
+    t_instr = rows * (31 + math.isqrt(m)) * m * FIT_TERM_INSTR / F32_INSTR_PER_S
+    return 1e3 * max(t_bytes, t_instr), "bytes" if t_bytes >= t_instr else "instructions"
+
+
+def phase_fit(kern: dict, tail_length) -> None:
+    """Phase 1c: kernel F against its plain version on kernel A's compact
+    tails of the main path's shape, and its time there (the envelope is
+    phase 16's ``fit`` section)."""
+    import torch
+
+    from pyloo_tpu_torch.ops import loo_kernels, topk
+    from pyloo_tpu_torch.tools import validate_kernels
+
+    rows, s = 125_000, 4_000
+    m = tail_length(s)
+    print(f"phase 1c: kernel F against its plain version at ({rows}, {m + 1})", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = 1.0 + 0.8 * torch.randn(rows, s, device="cuda", generator=gen)  # x = -log_lik
+    vals, c, log_ntl, _ = topk.loo_prepass(x, m + 1)
+    del x
+    run = validate_kernels.Run(torch.device("cuda", torch.cuda.current_device()), 3)
+    validate_kernels.hold_f(run, vals, log_ntl, c, s, {"s": s, "m": m, "b": rows})
+    rec = run.records[-1]
+    kern["max_abs_err"] = max(kern["max_abs_err"], rec["max_abs_diff"])
+    check(rec["pass"], f"kernel F ({rows}, {m + 1}) against its plain version: max |diff|"
+          f" {rec['max_abs_diff']:.3g}, {rec['degenerate_rows']} degenerate rows, flags equal")
+    zero_counts()
+    kern["ms"] = median_ms(lambda: loo_kernels.psis_tail_fit(vals, log_ntl, c, s))
+    kern["plain_ms"] = median_ms(lambda: loo_kernels.psis_tail_fit_plain(vals, log_ntl, c, s), 3)
+    launched = read_counts(main_path=False)["F"]
+    kern["bound_ms"], kern["bound_by"] = fit_bound(rows, m)
+    print(f"  time  psis_tail_fit ({rows}, {m + 1}): kernel {kern['ms']:.3f} ms"
+          f" ({100 * kern['bound_ms'] / kern['ms']:.0f}% of the {kern['bound_ms']:.3f} ms bound,"
+          f" {kern['bound_by']}), plain {kern['plain_ms']:.3f} ms; {launched} launches of F for"
+          " 8 kernel runs", flush=True)
+    del vals, c, log_ntl
+
+
 def hold_variant(kern: dict, letter: str, variant: str, plains, x, k: int, what: str) -> None:
     """Kernel C or D against its plain versions (the tree order of the TPU
     kernel, the fold order of the CUDA kernel) and torch.topk (as kernel
@@ -700,8 +752,9 @@ def phase_main_path(pl, kernels: dict):
     got = read_counts()
     n_over = topk.overflow_rows(reset=True)
     n_chunks = -(-n_obs // chunk_rows(chains * draws, 4))
-    check(got["A"] == n_chunks and got["B"] == got["C"] == got["D"] == got["E"] == 0,
-          f"kernel A launched {got['A']} times for {n_chunks} chunks; kernel B {got['B']}")
+    check(got["A"] == got["F"] == n_chunks and got["B"] == got["C"] == got["D"] == got["E"] == 0,
+          f"kernels A and F launched {got['A']} and {got['F']} times for {n_chunks} chunks;"
+          f" kernel B {got['B']}")
     loo_i, khat = res.loo_i.values, res.pareto_k.values
     check(loo_i.shape == (n_obs,) and np.isfinite(loo_i).all() and np.isfinite(khat).all(),
           f"loo_i, pareto_k finite, shape {loo_i.shape}; elpd_loo {res['elpd_loo']:.6f},"
@@ -724,9 +777,9 @@ def phase_main_path(pl, kernels: dict):
     wide_a, wide_b = got["A"], got["B"]
     wide_chunks = -(-8_192 // chunk_rows(80_000, 4))
     parts = topk.multipass_parts(80_000, m_wide + 1)
-    check(wide_a == parts * wide_chunks and wide_b == wide_chunks,
+    check(wide_a == parts * wide_chunks and wide_b == got["F"] == wide_chunks,
           f"kernel A launched {wide_a} times ({parts} parts x {wide_chunks} chunks);"
-          f" kernel B {wide_b} times (one merge per chunk)")
+          f" kernel B {wide_b} times (one merge per chunk), kernel F {got['F']}")
     print(f"  time  loo() {timed_wide['wall_s']:.3f} s wall, scoring"
           f" {timed_wide['scoring_s']:.3f} s; peak device memory {timed_wide['peak_gb']:.2f} GB",
           flush=True)
@@ -846,9 +899,9 @@ def phase_streaming(pl, ll_host, model, reff: float, res32, res64) -> dict:
     peak = torch.cuda.max_memory_allocated() / 1e9
     got = read_counts()
     n_over = overflow_rows(reset=True)
-    check(got["A"] == n_chunks and got["B"] == got["C"] == got["D"] == got["E"] == 0,
-          f"kernel A launched {got['A']} times for {n_chunks} chunks of {chunk};"
-          f" kernel B {got['B']}")
+    check(got["A"] == got["F"] == n_chunks and got["B"] == got["C"] == got["D"] == got["E"] == 0,
+          f"kernels A and F launched {got['A']} and {got['F']} times for {n_chunks} chunks of"
+          f" {chunk}; kernel B {got['B']}")
     print(f"  time  loo_streaming() {wall:.3f} s wall, {n_obs / wall:.0f} obs/s; peak device"
           f" memory {peak:.2f} GB; elpd_loo {res['elpd_loo']:.6f}, loo() {res32['elpd_loo']:.6f}",
           flush=True)
@@ -922,8 +975,9 @@ def phase_streaming(pl, ll_host, model, reff: float, res32, res64) -> dict:
                                pointwise=True)
         got = read_counts()
         want_a = n_chunks if dtype == "float32" else 0
-        check(got["A"] == want_a and got["B"] == 0,
-              f"{dtype}: kernel A launched {got['A']} times ({want_a} expected)")
+        check(got["A"] == got["F"] == want_a and got["B"] == 0,
+              f"{dtype}: kernels A and F launched {got['A']} and {got['F']} times ({want_a}"
+              " expected)")
         e, k = out.loo_i.values, out.pareto_k.values
         e_ref, k_ref = ref.loo_i.values[:n_rows], ref.pareto_k.values[:n_rows]
         differ = ~((e == e_ref) | (np.isnan(e) & np.isnan(e_ref))) | ~(
@@ -3311,7 +3365,7 @@ def phase_edge(pl, smi: str, kernels: dict, model, reff: float, phase5: dict,
           f" non-tail mass one pass flushes to 0 and the merge keeps below 1e-38")
     del x, got, want
     launched = read_counts(main_path=False)
-    check(launched == {**calls, "E": 0},
+    check(launched == {**calls, "E": 0, "F": 0},
           f"14a launches: A {launched['A']}, B {launched['B']}, C {launched['C']},"
           f" D {launched['D']} (the holds' calls: {calls})")
 
@@ -3770,9 +3824,14 @@ def main() -> int:
         "topk_profile": entry("profile_topk_desc (kernel E, profiling harness over kernel B)",
                               "pyloo_tpu_torch/ops/topk_profile.py",
                               "scripts/profile_pallas_topk.py:76"),
+        "psis_tail_fit": entry("psis_tail_fit (kernel F, float32 tail fit, smoothing and elpd)",
+                               "pyloo_tpu_torch/csrc/psis_tail_fit.cu",
+                               "none: pyloo_tpu/ops/loo_kernels.py's _psis_tail_scores, fused"
+                               " by XLA"),
     }
     phase_kernels(kernels, tail_length)
     phase_variants(kernels)
+    phase_fit(kernels["psis_tail_fit"], tail_length)
     ll_host, beta, model, res32, _ = phase_main_path(pl, kernels)
     reff = compute_reff(pl.from_dict(posterior={"beta": beta}), None, beta.shape[0] * beta.shape[1])
     res64 = phase_float64(pl, ll_host, beta, res32)

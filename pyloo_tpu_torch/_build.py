@@ -25,7 +25,7 @@ __all__ = ["BUILD_DIR", "build", "is_built", "load"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "pyloo_tpu_torch"
-_SOURCES = ("topk_prepass.cu", "topk_bitonic.cu")
+_SOURCES = ("topk_prepass.cu", "topk_bitonic.cu", "psis_tail_fit.cu")
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -133,6 +133,11 @@ def load() -> ctypes.CDLL:
             fn.restype = _INT
         lib.pyloo_bitonic_blocks_per_sm.argtypes = [_INT, _INT]
         lib.pyloo_bitonic_blocks_per_sm.restype = _INT
+        lib.pyloo_psis_tail_fit_f32.argtypes = [
+            _INT, _VOID_P, _INT, _INT, _INT, _VOID_P, _VOID_P, _INT,
+            _VOID_P, _VOID_P, _VOID_P, _VOID_P,
+        ]
+        lib.pyloo_psis_tail_fit_f32.restype = _INT
         lib.pyloo_error_string.argtypes = [_INT]
         lib.pyloo_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -9,8 +9,10 @@ Two PSIS variants share one scoring core (:func:`_psis_tail_scores`):
 * :func:`loo_scores_psis` — the reference-exact float64 path (NaN poisoning
   of sigma <= 0 fits, strict-``>`` tie membership, the linear fit);
 * :func:`loo_scores_psis_fast` — the float32 throughput path through the
-  fused prepass (kernel A on the card); rows whose fit degenerates keep their
-  unsmoothed tail and are flagged in a fourth output.
+  fused prepass (kernel A on the card) and the fused tail fit (kernel F,
+  :func:`psis_tail_fit`, whose plain version is the scoring core); rows whose
+  fit degenerates keep their unsmoothed tail and are flagged in a fourth
+  output.
 
 Both close the elpd over the compact top-(M+1) tail: with ``x = -ll - C``
 (C the row max of ``-ll``), every non-tail element has ``x_smoothed + ll =
@@ -28,6 +30,7 @@ import math
 
 import torch
 
+from .. import _build, profiling
 from .guard import by_branch, deep_rows
 from .lse import logsumexp
 from .psis import (
@@ -41,6 +44,10 @@ from .psis import (
 from .selection import fast_path_route, topk_vals_desc
 from .topk import (
     _CUTOFF_FLOOR,
+    MAX_K,
+    _count_on,
+    _launch_args,
+    _raise_on,
     loo_prepass,
     loo_prepass_multi,
     multipass_parts,
@@ -50,6 +57,8 @@ from .topk import (
 __all__ = [
     "loo_scores_psis",
     "loo_scores_psis_fast",
+    "psis_tail_fit",
+    "psis_tail_fit_plain",
     "loo_scores_sis",
     "loo_scores_tis",
     "mixture_scores",
@@ -195,6 +204,80 @@ def _psis_tail_scores(tail_vals, xcutoff, log_ntl, C, S: int, *, exact: bool):
     return elpd_i, khat, degenerate
 
 
+def psis_tail_fit_plain(vals, log_ntl, C, S: int):
+    """Plain version of kernel F: ``(elpd_i, khat, degenerate)`` from the
+    fused prepass's output.
+
+    ``vals`` are the descending shifted top M + 1 of each row (kernel A's or
+    ``loo_prepass_multi``'s), ``log_ntl`` its non-tail mass, ``C`` the row
+    max of ``x = -log_lik`` and ``S`` the draws a row.  The cutoff is the
+    (M+1)-th value floored at log(float64 tiny); then
+    :func:`_psis_tail_scores` with ``exact=False``.
+    """
+    M = vals.shape[1] - 1
+    xcutoff = torch.clamp_min(vals[:, M], _CUTOFF_FLOOR)
+    # a NaN cutoff (a row of +-inf in x, or a NaN) leaves no element
+    # under it: the empty sum _nontail_mass gives, where kernel A's is NaN
+    log_ntl = torch.where(torch.isnan(xcutoff), -math.inf, log_ntl)
+    return _psis_tail_scores(vals[:, :M], xcutoff, log_ntl, C, S, exact=False)
+
+
+def _check_tail_fit(vals, log_ntl, C, S: int) -> None:
+    if vals.dim() != 2 or vals.shape[1] < 2:
+        raise ValueError(f"expected (B, M + 1) tail values, got shape {tuple(vals.shape)}")
+    if vals.dtype != torch.float32:
+        raise TypeError(f"expected float32, got {vals.dtype}")
+    M = vals.shape[1] - 1
+    if M > MAX_K - 1 or S < M + 1:
+        raise ValueError(f"the kernel does not support M={M}, S={S}"
+                         f" (needs M <= {MAX_K - 1} and S >= M + 1)")
+    if vals.stride(1) != 1:
+        raise ValueError("tail rows must be contiguous (stride 1 along the row)")
+    for name, t in (("log_ntl", log_ntl), ("C", C)):
+        if t.shape != vals.shape[:1] or t.dtype != vals.dtype or t.device != vals.device:
+            raise ValueError(f"{name} must be ({vals.shape[0]},) {vals.dtype} on {vals.device},"
+                             f" got {tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def psis_tail_fit(vals, log_ntl, C, S: int, route: str = "cuda"):
+    """Kernel F: the float32 tail fit, smoothing and elpd reductions of
+    :func:`loo_scores_psis_fast` in one launch.
+
+    Takes what :func:`psis_tail_fit_plain` takes (``vals`` may be a view
+    with a row stride longer than M + 1) and returns what it returns; on
+    the card, the same terms summed in another order.  A CUDA tensor
+    launches ``csrc/psis_tail_fit.cu`` on its device and current stream,
+    counted in ``launches`` and ``by_device`` and, while a profiler
+    records, as B rows under ``route`` in the ``fit_kernel_rows`` counter;
+    a CPU tensor takes the plain version.  Raises on what the kernel does
+    not take: not float32, a row that is not contiguous, M > 1023.
+    """
+    _check_tail_fit(vals, log_ntl, C, S)
+    if vals.device.type == "cpu":
+        return psis_tail_fit_plain(vals, log_ntl, C, S)
+    device, ld, stream = _launch_args(vals)
+    b = vals.shape[0]
+    elpd_i, khat = torch.empty((2, b), dtype=vals.dtype, device=vals.device)
+    degenerate = torch.empty(b, dtype=torch.bool, device=vals.device)
+    if b == 0:
+        return elpd_i, khat, degenerate
+    lib = _build.load()
+    code = lib.pyloo_psis_tail_fit_f32(
+        device, vals.data_ptr(), b, vals.shape[1] - 1, ld, log_ntl.contiguous().data_ptr(),
+        C.contiguous().data_ptr(), S, elpd_i.data_ptr(), khat.data_ptr(),
+        degenerate.data_ptr(), stream,
+    )
+    _raise_on(code, lib, "psis_tail_fit")
+    psis_tail_fit.launches += 1
+    _count_on(psis_tail_fit.by_device, vals.device)
+    profiling.count("fit_kernel_rows", route, b)
+    return elpd_i, khat, degenerate
+
+
+psis_tail_fit.launches = 0
+psis_tail_fit.by_device = {}
+
+
 def _nontail_mass(x, xcutoff, m1=None):
     """log sum over {x <= xcutoff} of exp(x), max-shifted (full-row pass).
 
@@ -281,17 +364,13 @@ def loo_scores_psis_fast(log_lik, tail_max: int, route: str | None = None):
     else:
         raise ValueError(f"unknown route {route!r}")
 
-    xcutoff = torch.clamp_min(vals[:, M], _CUTOFF_FLOOR)
     if route == "torch":
-        log_ntl = _nontail_mass(x, xcutoff)
+        xcutoff = torch.clamp_min(vals[:, M], _CUTOFF_FLOOR)
+        elpd_i, khat, degenerate = _psis_tail_scores(
+            vals[:, :M], xcutoff, _nontail_mass(x, xcutoff), C1, S, exact=False
+        )
     else:
-        # a NaN cutoff (a row of +-inf in x, or a NaN) leaves no element
-        # under it: the empty sum _nontail_mass gives, where kernel A's is NaN
-        log_ntl = torch.where(torch.isnan(xcutoff), -math.inf, log_ntl)
-
-    elpd_i, khat, degenerate = _psis_tail_scores(
-        vals[:, :M], xcutoff, log_ntl, C1, S, exact=False
-    )
+        elpd_i, khat, degenerate = psis_tail_fit(vals, log_ntl, C1, S, route)
 
     if route == "torch":
         lppd_i = logsumexp(log_lik, dim=1, b_inv=S)

@@ -13,7 +13,7 @@ surface to its in-memory or independent counterpart, in seven modes:
   ``loo_group_streaming`` == ``loo_group`` (1e-9);
 * ``nonfactor`` -- ``loo_nonfactor`` against brute-force conditional
   log-likelihoods and ``psislw`` (1e-6);
-* ``fast32`` -- float32 ``loo_streaming`` (kernel A on the card) against
+* ``fast32`` -- float32 ``loo_streaming`` (kernels A and F on the card) against
   float64 (elpd 2e-3 relative, k 0.08);
 * ``subsample`` -- ``loo_subsample_streaming`` == ``loo_subsample`` on the
   same rows, each estimator (1e-8);
@@ -30,9 +30,9 @@ held to the CPU's within :data:`CARD_CPU_TOL` (moment matching's pareto_k
 within :data:`MM_K_TOL`, the mode's own bar); float32 results (``fast32``)
 within the float32 envelope (:data:`F32_TOL_LOO_I`, :data:`F32_TOL_K`,
 :data:`F32_TOL_TIE` for rows whose float32 tail differs from float64's by a
-cutoff tie), and kernel A's route against the plain route
+cutoff tie), and the kernels' route against the plain route
 (``loo_scores_psis_fast(route="torch")``) on the card, within the same
-envelope.
+envelope and with the same ``degenerate`` flags.
 
 Run, from the root of the repository::
 
@@ -320,13 +320,15 @@ def run_fast32(spec, device):
         out[f"{name}.loo_i"] = _np(res.loo_i)
         out[f"{name}.pareto_k"] = _np(res.pareto_k)
     if torch.device(device).type == "cuda":
-        # kernel A's route (the default on the card) against the plain route
+        # the kernels' route (A and F, the default on the card) against the
+        # plain route
         rows = torch.as_tensor(ll, dtype=torch.float32, device=device)
         m = tail_length(S)
         for route in (None, "torch"):
-            elpd_i, k, _, _ = loo_scores_psis_fast(rows, m, route=route)
+            elpd_i, k, _, degenerate = loo_scores_psis_fast(rows, m, route=route)
             name = "route.kernel" if route is None else "route.torch"
             out[f"{name}.loo_i"], out[f"{name}.pareto_k"] = _np(elpd_i), _np(k)
+            out[f"{name}.degenerate"] = _np(degenerate)
     return out
 
 
@@ -351,7 +353,9 @@ def check_fast32(spec, r):
     if "route.kernel.loo_i" in r:
         held_f32(r["route.kernel.loo_i"], r["route.kernel.pareto_k"], r["route.torch.loo_i"],
                  r["route.torch.pareto_k"], fast32_ties(spec),
-                 "kernel A's route against the plain route", fails)
+                 "the kernels' route against the plain route", fails)
+        if not np.array_equal(r["route.kernel.degenerate"], r["route.torch.degenerate"]):
+            fails.append("the kernels' route against the plain route: degenerate flags differ")
     return fails
 
 

@@ -2,7 +2,7 @@
 
 Port of ``scripts/validate_pallas_tpu.py``.  The CPU tests hold the plain
 versions to ``pyloo_tpu``; this tool holds the CUDA kernels and the float64
-programs as they run on the card, in seven sections:
+programs as they run on the card, in eight sections:
 
 * ``topk`` -- kernels B, C and D (``topk_desc``, variants ``roll``,
   ``reshape``, ``natural``): values bitwise equal to their plain versions
@@ -19,6 +19,13 @@ programs as they run on the card, in seven sections:
   one pass's ``MAX_S`` and with parts barely wider than k) and kernel B's
   merge, against one pass of the plain version over the whole row; each
   part (a view at its column) bitwise to the plain version.
+* ``fit`` -- kernel F (``psis_tail_fit``) against its plain version on the
+  same compact tails, kernel A's and ``loo_prepass_multi``'s (a strided
+  view among them): ``loo_i`` within ``F32_TOL_LOO_I`` (1 + |loo_i|), k
+  within ``F32_TOL_K``, rows with a tie at the cutoff within
+  ``F32_TOL_TIE`` (:mod:`.fuzz_differential`'s float32 envelope), NaN and
+  +-inf in the same places, ``degenerate`` equal row for row; over
+  :data:`FIT_M` and :data:`FIT_FAMILIES`.
 * ``exact`` -- float64 ``psislw`` against :mod:`.oracle` at :data:`EXACT_TOL`.
 * ``eloo`` -- the weighted mean, variance and quantile against float64
   NumPy at :data:`ELOO_TOL`, and ``khat_batch`` against the same function
@@ -61,13 +68,14 @@ import warnings
 import numpy as np
 import torch
 
-from ..ops import topk
+from ..ops import loo_kernels, topk
 from ..ops.psis import tail_length
 from ..ops.selection import fast_path_route
 from ._harness import (card_of, finite_err, nan_equal, on_device, platform_of,
                        resolve_device, sync)
+from .fuzz_differential import F32_TOL_K, F32_TOL_LOO_I, F32_TOL_TIE
 
-SECTIONS = ("topk", "prepass", "multi", "exact", "eloo", "nonfactor", "mm")
+SECTIONS = ("topk", "prepass", "multi", "fit", "exact", "eloo", "nonfactor", "mm")
 SEED = 20260818  # the inputs of every case
 
 # Kernel A's two sums against its plain version: the same float32 terms
@@ -116,6 +124,17 @@ MULTI_SHAPES = ((32_769, 192, 16, "tpu prepass"), (33_000, 513, 3, "edge"),
                 (100_000, 608, 16, "tpu prepass"), (131_072, 770, 5, "concentrated"),
                 (200_000, 192, 512, "tpu prepass"), (524_288, 1_024, 3, "adversarial"))
 # parts barely wider than k: S = parts (k + 1) - 1, the last part k wide
+# Kernel F's envelope: tail lengths M (k = M + 1 <= 1,024) at the edges of
+# its register buckets and of a warp, the main path's 190; batches whose
+# last block of 8 rows is ragged; the kernel sections' families and the
+# fit's own (FIT_FAMILIES)
+FIT_M = (1, 4, 5, 31, 32, 33, 190, 255, 256, 600, 1_023)
+FIT_BATCHES = (1, 3, 37, 259)
+FIT_FAMILIES = ("normal", "adversarial", "ties at k", "concentrated", "edge", "heavy",
+                "exponential", "deep", "degenerate", "short tail")
+# the fit on compact tails of loo_prepass_multi (S beyond one pass), as a
+# view at a column: (S, M, B, col, family)
+FIT_MULTI = ((40_000, 190, 37, 3, "normal"), (33_000, 600, 9, 1, "edge"))
 NARROW_PARTS = ((2_049, 1_024, 2), (770, 256, 3), (127, 31, 4), (31, 1, 16), (1_025, 512, 2))
 
 
@@ -272,6 +291,29 @@ def tpu_prepass_rows(b: int, s: int, gen, device):
     return -ll
 
 
+def fit_rows(family: str, b: int, s: int, k: int, gen, device):
+    """The tail fit's own families, x = -log_lik rows: ``heavy`` a t(2)
+    tail (k near 1); ``exponential`` k near 0; ``deep`` the float64
+    guard's rows, whose quartile exceedance lies below e^-60;
+    ``degenerate`` a top tie run of 100-120 draws over a tie at the cutoff
+    (the tail's values all equal: with 30 + floor(sqrt(n)) = 40 candidates,
+    the third candidate b cancels to 0 exactly and the fit gives sigma <= 0
+    where k >= 120), ``short tail`` 0-4 draws above a tie at the cutoff
+    (n_tail <= 4: no fit)."""
+    if family == "heavy":
+        return 3.0 * _student_t2(b * s, gen, device).abs().reshape(b, s)
+    if family == "exponential":
+        return -torch.log(torch.rand(b, s, generator=gen, device=device))
+    if family == "deep":
+        return -(8.0 * _student_t2(b * s, gen, device).reshape(b, s) - 30.0)
+    x = 0.1 * torch.randn(b, s, generator=gen, device=device) - 3.0
+    n_top = torch.arange(b, device=device)[:, None] % (21 if family == "degenerate" else 5)
+    n_top = n_top + (100 if family == "degenerate" else 0)
+    col = torch.arange(s, device=device)[None, :]
+    x = torch.where(col < n_top + k + 4, 0.5, x)  # the tie at the cutoff
+    return torch.where(col < n_top, 1.0, x)
+
+
 def family_rows(family: str, b: int, s: int, k: int, gen, device):
     """``(b, s)`` float32 rows of one input family."""
     if family == "normal":
@@ -288,6 +330,8 @@ def family_rows(family: str, b: int, s: int, k: int, gen, device):
         return edge_rows(b, s, k, gen, device)[0]
     if family == "tpu prepass":
         return tpu_prepass_rows(b, s, gen, device)
+    if family in FIT_FAMILIES:
+        return fit_rows(family, b, s, k, gen, device)
     raise ValueError(f"unknown family {family!r}")
 
 
@@ -560,6 +604,70 @@ def section_multi(run: Run, shapes=None, narrow=None) -> None:
         run.record("multi", "A multipass + B merge", passed, max(vals_diff, sums_diff), **meta,
                    deep_rows=int(deep.sum()))
         del x
+
+
+def fit_cases() -> list:
+    """``(S, M, B, col, family)`` for kernel F: each M of :data:`FIT_M` in
+    each family, the batches and view columns taken in turn (S = 4,000, or
+    4 (M + 1) where that is wider); at the main path's M = 190, every
+    family at 1,029 rows and normal rows at 4,099."""
+    cases, i = [], 0
+    for m in FIT_M:
+        for family in FIT_FAMILIES:
+            cases.append((max(4_000, 4 * (m + 1)), m, FIT_BATCHES[i % len(FIT_BATCHES)],
+                          VIEW_COLS[i % len(VIEW_COLS)], family))
+            i += 1
+    cases += [(4_000, 190, 1_029, 0, family) for family in FIT_FAMILIES]
+    cases.append((4_000, 190, 4_099, 0, "normal"))
+    return cases
+
+
+def _same_places(got, want) -> bool:
+    """NaN, +inf and -inf at the same rows."""
+    return all(torch.equal(f(got), f(want)) for f in (torch.isnan, torch.isposinf, torch.isneginf))
+
+
+def hold_f(run: Run, vals, log_ntl, c, s: int, meta: dict) -> None:
+    """Kernel F against its plain version on the same compact tails, within
+    the float32 envelope; ``degenerate`` equal row for row."""
+    got = loo_kernels.psis_tail_fit(vals, log_ntl, c, s)
+    want = loo_kernels.psis_tail_fit_plain(vals, log_ntl, c, s)
+    sync(run.device)
+    m = vals.shape[1] - 1
+    ties = (vals[:, :m] == vals[:, m:]).any(dim=1)  # a tail value equal to the cutoff's
+    tol_e = torch.where(ties, F32_TOL_TIE, F32_TOL_LOO_I) * (1 + want[0].double().abs())
+    tol_k = torch.where(ties, F32_TOL_TIE, F32_TOL_K)
+    passed = True
+    for g, w, tol in ((got[0], want[0], tol_e), (got[1], want[1], tol_k)):
+        both = torch.isfinite(g) & torch.isfinite(w)
+        near = (g.double() - w.double()).abs() <= tol
+        passed &= _same_places(g, w) and bool((near | ~both).all())
+    passed &= torch.equal(got[2], want[2])
+    run.record("fit", "F", passed, max(finite_err(got[0], want[0]), finite_err(got[1], want[1])),
+               **meta, tie_rows=int(ties.sum()), degenerate_rows=int(want[2].sum()),
+               short_rows=int(torch.isinf(want[1]).sum()))
+
+
+def section_fit(run: Run, cases=None, multi=None) -> None:
+    """Kernel F over ``cases`` (default :func:`fit_cases`) on kernel A's
+    compact tails, a view of them at the case's column, and over ``multi``
+    (default :data:`FIT_MULTI`) on ``loo_prepass_multi``'s."""
+    for s, m, b, col, family in fit_cases() if cases is None else cases:
+        x = family_rows(family, b, s, m + 1, run.gen, run.device)
+        vals, c, log_ntl, _ = topk.loo_prepass(x, m + 1)
+        vals = as_view(vals, col)
+        hold_f(run, vals, log_ntl, c, s, {"s": s, "m": m, "b": b, "col": col,
+                                          "ld": vals.stride(0) if b > 1 else m + 1,
+                                          "family": family})
+        del x, vals
+    for s, m, b, col, family in FIT_MULTI if multi is None else multi:
+        x = family_rows(family, b, s, m + 1, run.gen, run.device)
+        parts = topk.multipass_parts(s, m + 1)
+        vals, c, log_ntl, _ = topk.loo_prepass_multi(x, m + 1, parts)
+        vals = as_view(vals, col)
+        hold_f(run, vals, log_ntl, c, s, {"s": s, "m": m, "b": b, "col": col, "parts": parts,
+                                          "ld": vals.stride(0), "family": family})
+        del x, vals
 
 
 # --------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """``pyloo_tpu_torch.tools.validate_kernels`` on the CPU, at small shapes.
 
-Each of the tool's seven sections runs with ``--device cpu`` (the kernel
+Each of the tool's eight sections runs with ``--device cpu`` (the kernel
 wrappers return their plain versions there) on a cut of its cases, and
 every case passes with ``"platform": "cpu"``.  The tool's oracle copy
 equals ``tests/oracle.py`` within 1e-12; without a card the tool exits 2
