@@ -106,7 +106,12 @@ Phases:
    S = 4,000 (8.4 GB of float64 matrices, copied to the card a chunk at a
    time) in the ``cov``, ``student_t``, ``prec`` and diagonal forms, held to
    the CPU path on 64 draws (1e-10), ``cov`` to ``prec`` (1e-8) and the
-   diagonal form to ``loo()`` of the pointwise normal log-likelihood;
+   diagonal form to ``loo()`` of the pointwise normal log-likelihood, and
+   ``loo_nonfactor_streaming`` on the same covariances, handed over a chunk
+   at a time by its matrix function, held to the ``cov`` form bit for bit;
+   and one chunk of 8 GP covariances made on the card at N = 2,048 and
+   2,100, its merged inverse factor held to the triangular solve (1e-14
+   relative), the Cholesky, the inverse and the solve timed;
 12. first use, ingestion, profiling and the PyMC bridge: (a) two fresh
    processes (``first_use_child``), each importing the package and making
    phase 5's model, one running phase 5's ``loo_streaming`` twice, the
@@ -2417,8 +2422,10 @@ def phase_fits(pl, smi: str) -> None:
                   f" draws (d {d:+.3f}, {tol} allowed); {int(np.sum(loo.pareto_k.values > 0.7))}"
                   f" observations k > 0.7")
 
-        # (d) loo_nonfactor on a joint MVN, N = 512, S = 4,000
+        # (d) loo_nonfactor on a joint MVN, N = 512, S = 4,000, and one
+        # chunk of the benchmark's GP at N = 2,048 and 2,100
         phase_nonfactor(pl, timings)
+        phase_nonfactor_chunk()
 
     launched = {what: t["launches"] for what, t in timings.items() if any(t["launches"].values())}
     check(not launched, "phase 11 runs in float64 and launches none of kernels A to D in any of"
@@ -2498,6 +2505,21 @@ def phase_nonfactor(pl, timings: dict, n: int = 512, chains: int = 4, draws: int
                   f" over {mesh.size} shards equals one device bit for bit (elpd_loo, loo_i,"
                   f" pareto_k; {timings[what_m]['wall_s']:.3f} s against"
                   f" {timings[what]['wall_s']:.3f} s)")
+        if form == "cov":  # the streamed entry on the same matrices, copied a chunk at a time
+            flat, mu_card = mats.reshape(S, n, n), torch.from_numpy(mus.reshape(S, n)).cuda()
+            what_s = f"loo_nonfactor_streaming(cov, N = {n}, S = {S})"
+            streamed = timed_call(what_s, lambda: pl.loo_nonfactor_streaming(
+                y, mu_card, lambda idx: torch.from_numpy(
+                    flat[int(idx[0]):int(idx[-1]) + 1]).to(idx.device),
+                S, chains=chains, reff=1.0, pointwise=True), timings)
+            check(streamed["elpd_loo"] == res[form]["elpd_loo"]
+                  and result_digest(streamed) == result_digest(res[form]),
+                  f"11d: {what_s}, each chunk's covariances handed over by its matrix"
+                  f" function, equals {what} on the same matrices bit for bit (elpd_loo,"
+                  f" loo_i, pareto_k; {timings[what_s]['wall_s']:.3f} s against"
+                  f" {timings[what]['wall_s']:.3f} s; launches"
+                  f" {timings[what_s]['launches']})")
+            del mu_card
         # the card against the port's CPU path on the first 64 draws: the
         # estimates within 1e-10; k in two parts, the conditional
         # log-likelihoods within 1e-10 and PSIS on the card against PSIS on
@@ -2543,14 +2565,14 @@ def phase_nonfactor(pl, timings: dict, n: int = 512, chains: int = 4, draws: int
             mu_card = torch.from_numpy(mus.reshape(S, n)[:chunk]).cuda()
             cov_card = torch.from_numpy(flat[:chunk]).cuda()
             stage = {"copy": median_ms(lambda: torch.from_numpy(flat[:chunk]).cuda(), runs=3),
-                     "factor": median_ms(lambda: nonfactor._mvn_chunk(y_card, mu_card,
-                                                                      cov=cov_card), runs=3)}
+                     "factor": median_ms(lambda: nonfactor._precision_terms(
+                         y_card, mu_card, cov=cov_card), runs=3)}
             n_chunks = math.ceil(S / chunk)
             wall_ms = 1e3 * timings[what]["wall_s"]
             print(f"  time  one chunk of {chunk} draws ({flat[:chunk].nbytes / 1e9:.3f} GB):"
                   f" pageable copy {stage['copy']:.3f} ms"
                   f" ({flat[:chunk].nbytes / stage['copy'] / 1e6:.2f} GB/s), Cholesky,"
-                  f" solves and log-densities {stage['factor']:.3f} ms; x {n_chunks} chunks:"
+                  f" inverse factor and terms {stage['factor']:.3f} ms; x {n_chunks} chunks:"
                   f" copies {n_chunks * stage['copy']:.1f} ms"
                   f" ({100 * n_chunks * stage['copy'] / wall_ms:.1f}% of the"
                   f" {wall_ms:.1f} ms call), factorisations {n_chunks * stage['factor']:.1f} ms"
@@ -2583,6 +2605,44 @@ def phase_nonfactor(pl, timings: dict, n: int = 512, chains: int = 4, draws: int
     check(d <= 1e-8, f"{what}: {timings[what]['wall_s']:.3f} s; against loo() of the pointwise"
           f" normal log-likelihood: max |d loo_i| {d:.3g} (1e-8), elpd_loo"
           f" {diag['elpd_loo']:.3f} / {plain['elpd_loo']:.3f}")
+
+
+def phase_nonfactor_chunk(sizes=(2048, 2100), draws: int = 8, seed: int = 11) -> None:
+    """Phase 11d at the benchmark cell's size: one chunk of ``draws``
+    squared-exponential covariances, ``alpha^2 exp(-d^2 / (2 rho^2)) +
+    sigma^2 I`` at points on [0, 10] with (alpha, rho, sigma) jittered
+    around (1, 1, 0.3), made on the card at each N of ``sizes`` (2,048 the
+    cell's, its inverse factor split evenly; 2,100 unevenly).  The merged
+    inverse factor is held to the triangular solve against the identity
+    (1e-14 relative), and the batched Cholesky, the merged inverse and the
+    solve are timed (CUDA events)."""
+    import torch
+
+    from pyloo_tpu_torch.ops import nonfactor
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for n in sizes:
+        x = 10.0 * torch.rand(n, dtype=torch.float64, device="cuda", generator=gen)
+        d2 = (x[:, None] - x[None, :]).square()
+        theta = torch.tensor([1.0, 1.0, 0.3], dtype=torch.float64, device="cuda") * torch.exp(
+            0.05 * torch.randn(draws, 3, dtype=torch.float64, device="cuda", generator=gen))
+        alpha, rho, sigma = (theta[:, i, None, None] for i in range(3))
+        eye = torch.eye(n, dtype=torch.float64, device="cuda")
+        cov = alpha.square() * torch.exp(-d2 / (2 * rho.square())) + sigma.square() * eye
+        chol, info = torch.linalg.cholesky_ex(cov)
+        want = torch.linalg.solve_triangular(chol, eye.expand_as(chol), upper=False)
+        got = nonfactor._tri_inverse(chol)
+        rel = float((got - want).abs().max() / want.abs().max())
+        ms = {"Cholesky": median_ms(lambda: torch.linalg.cholesky_ex(cov), runs=5),
+              "merged inverse": median_ms(lambda: nonfactor._tri_inverse(chol), runs=5),
+              "solve": median_ms(lambda: torch.linalg.solve_triangular(
+                  chol, eye.expand_as(chol), upper=False), runs=5)}
+        check(int(info.abs().sum()) == 0 and torch.equal(torch.tril(got), got) and rel <= 1e-14,
+              f"11d: one chunk of {draws} GP covariances at N = {n}: the merged inverse factor"
+              f" against the triangular solve, max |d| / max |L^-1| {rel:.3g} (1e-14); a chunk's"
+              f" batched Cholesky {ms['Cholesky']:.3f} ms, merged inverse"
+              f" {ms['merged inverse']:.3f} ms, solve {ms['solve']:.3f} ms")
+        del cov, chol, want, got
 
 
 def first_use_child(mode: str, reff: float) -> None:

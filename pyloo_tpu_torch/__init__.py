@@ -20,7 +20,8 @@ workflows that refit or re-weight a model (``Model``, ``JAXModelWrapper``,
 on the device or fitted by ``Laplace`` and ``ADVI``
 (:mod:`pyloo_tpu_torch.models`), or a live PyMC model through
 ``PyMCWrapper``; LOO for non-factorised normal and Student-t models
-(``loo_nonfactor``); ingestion of netCDF files, CmdStan CSV output, NumPyro
+(``loo_nonfactor``, and ``loo_nonfactor_streaming`` with the draws'
+matrices made on the device a chunk at a time); ingestion of netCDF files, CmdStan CSV output, NumPyro
 and cmdstanpy fits and foreign arviz-style objects (``from_netcdf``,
 ``save_netcdf``, ``from_cmdstan``, ``from_cmdstanpy``, ``from_numpyro``,
 ``convert_foreign``); the diagnostic plots (``plot_loo``, ``plot_khat``,
@@ -132,6 +133,7 @@ from .streaming import (
     loo_approximate_posterior_streaming,
     loo_compare_streaming,
     loo_group_streaming,
+    loo_nonfactor_streaming,
     loo_predictive_metric_streaming,
     loo_score_streaming,
     loo_streaming,
@@ -157,6 +159,7 @@ __all__ = [
     "loo_group_streaming",
     "loo_subsample_streaming",
     "loo_approximate_posterior_streaming",
+    "loo_nonfactor_streaming",
     "NpyLogLik",
     "loo_from_file",
     "waic_from_file",

@@ -21,7 +21,7 @@ from .parallel import apply_rowwise
 from .profiling import count
 from .rcparams import rcParams
 
-__all__ = ["ISMethod", "as_sample_matrix", "compute_importance_weights"]
+__all__ = ["ISMethod", "as_sample_matrix", "compute_importance_weights", "importance_weights"]
 
 # full-width (chunk, S) buffers the weight functions hold beyond the scorers'
 # four: the weights they return and the selection's indices
@@ -177,25 +177,31 @@ def compute_importance_weights(
     if log_weights is None:
         raise ValueError("log_weights must be provided")
 
-    matrix, n_samples, rebuild = as_sample_matrix(log_weights)
+    matrix, _, rebuild = as_sample_matrix(log_weights)
+    lw, diag = importance_weights(matrix, method, reff)
+    del matrix
+
+    lw_out, diag_out = rebuild(_host(lw), _host(diag))
+    if isinstance(diag_out, DataArray):
+        diag_out = diag_out.rename("pareto_shape" if method == ISMethod.PSIS else "ess")
+    return lw_out, diag_out
+
+
+def importance_weights(matrix: torch.Tensor, method: ISMethod, reff: float = 1.0):
+    """``(lw, diag)`` of an ``(n_obs, S)`` tensor of raw log weights, on its
+    device: the smoothed, truncated or normalised log weights and each
+    row's Pareto k (PSIS) or effective sample size (SIS, TIS)."""
+    n_samples = matrix.shape[1]
     if n_samples < 2:
         raise ValueError(
             "importance sampling requires at least 2 draws per observation,"
             f" got {n_samples}"
         )
-
     if method == ISMethod.PSIS:
         m_tail = tail_length(n_samples, reff)
         kernel = lambda block: psislw_batch(block, m_tail)  # noqa: E731
-        diag_name = "pareto_shape"
     elif method == ISMethod.SIS:
-        kernel, diag_name = sislw_batch, "ess"
+        kernel = sislw_batch
     else:
-        kernel, diag_name = tislw_batch, "ess"
-    lw, diag = apply_rowwise(kernel, matrix, extra_buffers=_WEIGHTS_EXTRA_BUFFERS)
-    del matrix
-
-    lw_out, diag_out = rebuild(_host(lw), _host(diag))
-    if isinstance(diag_out, DataArray):
-        diag_out = diag_out.rename(diag_name)
-    return lw_out, diag_out
+        kernel = tislw_batch
+    return apply_rowwise(kernel, matrix, extra_buffers=_WEIGHTS_EXTRA_BUFFERS)

@@ -12,8 +12,8 @@ records, :func:`trace` or any other: :func:`span` names a phase of an entry
 point (``pyloo.loo.ingest``, ``pyloo.chunk.score``, ...) as a host range in
 the profiler's trace, on the clock of the device's activity, and
 :func:`count` adds to a counter (``host_reads`` by the funnel that read,
-``h2d_bytes`` by what was copied, ``guard_reruns``), which
-:func:`counters` reads.  With no profiler recording, each costs one check of
+``h2d_bytes`` by what was copied, ``guard_reruns``, ``factor_draws`` and
+``factor_failures`` by form), which :func:`counters` reads.  With no profiler recording, each costs one check of
 the profiler's state.
 """
 

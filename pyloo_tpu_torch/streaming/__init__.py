@@ -15,15 +15,19 @@ Counterpart of ``pyloo_tpu/streaming.py``, split by concern:
   :func:`loo_predictive_metric_streaming`;
 * ``group`` — :func:`loo_group_streaming`;
 * ``subsample`` — :func:`loo_subsample_streaming`,
-  :func:`loo_approximate_posterior_streaming`.
+  :func:`loo_approximate_posterior_streaming`;
+* ``nonfactor`` — :func:`loo_nonfactor_streaming`, non-factorised LOO with
+  the draws' matrices made on the device a chunk at a time.
 
-These are all nine of ``pyloo_tpu``'s ``*_streaming`` entry points.
+The first nine are all of ``pyloo_tpu``'s ``*_streaming`` entry points; the
+port adds the tenth.
 """
 
 from .compare import loo_compare_streaming
 from .expectations import e_loo_streaming, loo_predictive_metric_streaming
 from .group import loo_group_streaming
 from .loo import clear_streaming_cache, loo_streaming
+from .nonfactor import loo_nonfactor_streaming
 from .score import loo_score_streaming
 from .subsample import loo_approximate_posterior_streaming, loo_subsample_streaming
 from .waic import waic_streaming
@@ -39,4 +43,5 @@ __all__ = [
     "loo_group_streaming",
     "loo_subsample_streaming",
     "loo_approximate_posterior_streaming",
+    "loo_nonfactor_streaming",
 ]

@@ -33,6 +33,7 @@ for name in ("base", "psis", "sis", "tis", "waic", "loo_i", "e_loo", "loo_predic
              "models.batched_refit", "helpers", "ops.moment_match", "split_moment_match",
              "loo_moment_match", "loo_kfold", "reloo", "models.nuts", "models.chees",
              "models.advi", "models.laplace", "ops.nonfactor", "loo_nonfactor",
+             "streaming.nonfactor",
              "parallel", "parallel.sharding", "parallel.witness", "ops.guard",
              "tools.validate_kernels", "tools.fuzz_differential", "tools.oracle"):
     importlib.import_module("pyloo_tpu_torch." + name)
@@ -181,6 +182,9 @@ fits = {
     "Laplace": lambda: pl.Laplace(eight_nc).fit(draws=10, chains=1),
     "loo_nonfactor": lambda: pl.loo_nonfactor(mvn, reff=1.0),
     "loo_nonfactor(student_t)": lambda: pl.loo_nonfactor(mvn, reff=1.0, model_type="student_t"),
+    "loo_nonfactor_streaming": lambda: pl.loo_nonfactor_streaming(
+        y, 0.0, lambda idx: torch.eye(6, dtype=torch.float64).expand(len(idx), 6, 6), 100,
+        chains=2),
 }
 import warnings
 with warnings.catch_warnings():

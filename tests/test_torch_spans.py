@@ -262,3 +262,93 @@ def test_the_counters_file_holds_only_the_block_counts(tmp_path):
         "host_reads": {"inside": 2}}
     assert json.loads((tmp_path / f"counters_{pid}_1.json").read_text()) == {}
     assert profiling.counters() == {"host_reads": {"before": 1, "inside": 2}}
+
+
+# -- non-factorised LOO: loo_nonfactor and loo_nonfactor_streaming ---------
+
+NF_N, NF_CHAINS, NF_DRAWS, NF_CHUNK = 24, 2, 30, 25  # three chunks of draws, the last short
+NF_S = NF_CHAINS * NF_DRAWS
+
+
+def _nf_draws(broken=()):
+    """Covariances ``exp(-d^2 / 2) + 0.09 I`` at 24 inputs, scaled by a
+    jitter a draw, ``y`` and a mean of zero; the draws in ``broken`` made
+    not positive definite."""
+    rng = np.random.default_rng(4)
+    x = np.sort(rng.uniform(0.0, 10.0, NF_N))
+    base = np.exp(-0.5 * (x[:, None] - x[None, :]) ** 2) + 0.09 * np.eye(NF_N)
+    cov = base * np.exp(0.05 * rng.normal(size=(NF_S, 1, 1)))
+    cov[list(broken)] = -np.eye(NF_N)
+    return rng.multivariate_normal(np.zeros(NF_N), base), cov
+
+
+def _nf_call(entry, broken=()):
+    y, cov = _nf_draws(broken)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        if entry == "loo_nonfactor":
+            idata = tpl.from_dict(
+                posterior={"mu": np.zeros((NF_CHAINS, NF_DRAWS, NF_N)),
+                           "cov": cov.reshape(NF_CHAINS, NF_DRAWS, NF_N, NF_N)},
+                observed_data={"y": y})
+            return tpl.loo_nonfactor(idata, pointwise=True, reff=1.0)
+        mats = torch.from_numpy(cov)
+        return tpl.loo_nonfactor_streaming(y, torch.zeros(NF_S, NF_N, dtype=torch.float64),
+                                           lambda idx: mats[idx], NF_S, chains=NF_CHAINS,
+                                           pointwise=True)
+
+
+@pytest.fixture
+def _nf_chunks(monkeypatch):
+    from pyloo_tpu_torch.ops import nonfactor as tnf
+
+    monkeypatch.setattr(tnf, "_CHUNK_BUDGET_BYTES",
+                        NF_CHUNK * tnf._MATRICES_PER_DRAW * 8 * NF_N * NF_N)
+
+
+@pytest.mark.parametrize("entry", ["loo_nonfactor", "loo_nonfactor_streaming"])
+def test_nonfactor_span_tree_and_counters(entry, tmp_path, _nf_chunks):
+    """Both entries: a chunk is a ``pyloo.draws.generate`` and a
+    ``pyloo.draws.factor`` span, then the readback, the weights and the
+    assembly; ``factor_draws`` counts every draw, ``factor_failures`` none,
+    three reads of the host, and the host form's chunk copies in
+    ``h2d_bytes``.  The estimate is the same bit for bit with the profiler
+    on."""
+    result, spans, written = _traced(tmp_path, lambda: _nf_call(entry))
+    roots = [e for e in spans if _parent(spans, e) is None]
+    assert [e["name"] for e in roots] == ["pyloo.loo_nonfactor"]
+    assert _children(spans, roots[0]) == (
+        ["pyloo.draws.generate", "pyloo.draws.factor"] * 3
+        + ["pyloo.nonfactor.readback", "pyloo.nonfactor.weights", "pyloo.nonfactor.assemble"])
+    for name in ("pyloo.draws.generate", "pyloo.draws.factor"):
+        assert [(e["args"]["c"], e["args"]["j"]) for e in spans if e["name"] == name] == [
+            (0, 0), (1, 0), (2, 0)]
+    want = {"factor_draws": {"cov": NF_S}, "factor_failures": {"cov": 0},
+            "host_reads": {"nonfactor.draws": 1, "guard.host_read": 1, "nonfactor.scores": 1}}
+    if entry == "loo_nonfactor":  # the matrices and the means, from the host
+        want["h2d_bytes"] = {"draws": NF_S * NF_N * (NF_N + 1) * 8}
+    assert profiling.counters() == want
+    del want["factor_failures"]  # the counters file leaves out what counted 0
+    assert written == want
+    off = _rows(_nf_call(entry))
+    on = _rows(result)
+    assert list(on) == list(off)
+    for key in off:
+        assert_array_equal(on[key], off[key], err_msg=key)
+
+
+def test_nonfactor_counts_the_failed_factorisations(_nf_chunks):
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        res = _nf_call("loo_nonfactor_streaming", broken=(3, 40))
+    assert profiling.counters()["factor_failures"] == {"cov": 2}
+    assert res["n_samples"] == NF_S - 2
+
+
+@pytest.mark.parametrize("entry", ["loo_nonfactor", "loo_nonfactor_streaming"])
+def test_nonfactor_no_profiler_enters_no_span_and_counts_nothing(entry, monkeypatch):
+    def refused(*args, **kwargs):
+        raise AssertionError("a span was entered with no profiler recording")
+
+    monkeypatch.setattr(profiling, "_range", refused)
+    _nf_call(entry)
+    assert profiling.counters() == {}
