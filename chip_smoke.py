@@ -241,8 +241,9 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # kernel key -> the name of its launch counter
 KERNEL_COUNTERS = {"loo_prepass": "A", "topk_desc": "B", "topk_reshape": "C",
-                   "topk_natural": "D", "topk_profile": "E", "psis_tail_fit": "F"}
-PATH_LAUNCHES = dict.fromkeys("ABCDEF", 0)  # summed over the main-path windows
+                   "topk_natural": "D", "topk_profile": "E", "psis_tail_fit": "F",
+                   "chol_block": "G"}
+PATH_LAUNCHES = dict.fromkeys("ABCDEFG", 0)  # summed over the main-path windows
 # lane instructions a second outside the tensor cores (the float32 rate's
 # fused multiply-adds counted once), and the instructions of one candidate
 # term of the tail fit: an accurate expf (~10), log1pf or expm1f and logf
@@ -255,6 +256,7 @@ def zero_counts() -> None:
     """Set every kernel launch counter to 0 (just before a main path)."""
     from pyloo_tpu_torch.ops import topk
     from pyloo_tpu_torch.ops.loo_kernels import psis_tail_fit
+    from pyloo_tpu_torch.ops.nonfactor import chol_block
     from pyloo_tpu_torch.ops.topk_profile import profile_topk_desc
 
     topk.loo_prepass.launches = 0
@@ -262,6 +264,7 @@ def zero_counts() -> None:
         topk.topk_desc.launches[variant] = 0
     profile_topk_desc.launches = 0
     psis_tail_fit.launches = 0
+    chol_block.launches = 0
 
 
 def read_counts(main_path: bool = True) -> dict:
@@ -269,12 +272,14 @@ def read_counts(main_path: bool = True) -> dict:
     when the window was a main path's."""
     from pyloo_tpu_torch.ops import topk
     from pyloo_tpu_torch.ops.loo_kernels import psis_tail_fit
+    from pyloo_tpu_torch.ops.nonfactor import chol_block
     from pyloo_tpu_torch.ops.topk_profile import profile_topk_desc
 
     by_variant = topk.topk_desc.launches
     got = {"A": topk.loo_prepass.launches, "B": by_variant["roll"],
            "C": by_variant["reshape"], "D": by_variant["natural"],
-           "E": profile_topk_desc.launches, "F": psis_tail_fit.launches}
+           "E": profile_topk_desc.launches, "F": psis_tail_fit.launches,
+           "G": chol_block.launches}
     if main_path:
         for name, n in got.items():
             PATH_LAUNCHES[name] += n
@@ -544,6 +549,126 @@ def phase_fit(kern: dict, tail_length) -> None:
           f" {kern['bound_by']}), plain {kern['plain_ms']:.3f} ms; {launched} launches of F for"
           " 8 kernel runs", flush=True)
     del vals, c, log_ntl
+
+
+# the float64 tensor-core peak of one H100 SXM at 700 W (NVIDIA's data
+# sheet), the yardstick of the float64 factorisation
+F64_OPS_PER_S = 67e12
+# the orders of the blocked factor's crossover, each at draws_per_chunk(N)
+FACTOR_ORDERS = (128, 256, 300, 512, 1024, 2048, 2100)
+
+
+def factor_bound(draws: int, nb: int):
+    """Kernel G's least time in ms: each block's 2 nb^3 / 3 flops (the
+    factor's nb^3 / 3 and the inverse's) at the float64 peak of the SMs
+    its draws occupy, one block of threads a draw."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    flops = draws * 2.0 * nb ** 3 / 3.0
+    return 1e3 * flops / (min(draws, sms) * F64_OPS_PER_S / sms), "operations"
+
+
+def phase_factor(kern: dict) -> None:
+    """Phase 1d: kernel G against its plain version on a chunk of eight
+    128 x 128 GP covariance blocks (one not positive definite) and its time
+    there beside ``cholesky_ex`` of the same blocks (``library_ms``); then
+    at each order of :data:`FACTOR_ORDERS`, on a chunk of
+    ``draws_per_chunk(N)`` GP covariances, the blocked factor against
+    ``cholesky_ex`` and the time of each, and of a chunk's terms
+    (``_precision_terms``) on each route: the crossover ``_BLOCKED_FROM``
+    reads from this table.  The checks at the card's other orders and
+    widths are phase 16's ``nonfactor`` section."""
+    import torch
+
+    from pyloo_tpu_torch.ops import nonfactor
+    from pyloo_tpu_torch.tools import validate_kernels
+
+    nb = nonfactor._NB
+    print(f"phase 1d: kernel G (nb = {nb}) and the blocked float64 factor", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    c = validate_kernels._gp_chunk(nb, gen, "cuda", draws=8)
+    l_out, w_out = torch.zeros_like(c), torch.zeros_like(c)
+    info = torch.zeros(8, dtype=torch.int32, device="cuda")
+    nonfactor.chol_block(c, l_out, w_out, info, 0)
+    pl_, pw, pinfo = nonfactor.chol_block_plain(c)
+    torch.cuda.synchronize()
+    ok = pinfo == 0
+    err = max(validate_kernels._rel(l_out, pl_, ok), validate_kernels._rel(w_out, pw, ok))
+    kern["max_abs_err"] = max(kern["max_abs_err"], err)
+    check(err < validate_kernels.FACTOR_TOL and torch.equal(info, pinfo),
+          f"kernel G (8, {nb}, {nb}) against its plain version: L and L^-1 within {err:.3g} of"
+          f" the largest entry, info {info.tolist()} equal")
+    zero_counts()
+    kern["ms"] = median_ms(lambda: nonfactor.chol_block(c, l_out, w_out, info, 0), runs=15)
+    kern["plain_ms"] = median_ms(lambda: nonfactor.chol_block_plain(c))
+    kern["library_ms"] = median_ms(lambda: torch.linalg.cholesky_ex(c), runs=15)
+    launched = read_counts(main_path=False)["G"]
+    kern["bound_ms"], kern["bound_by"] = factor_bound(8, nb)
+    print(f"  time  chol_block (8, {nb}, {nb}): kernel {1e3 * kern['ms']:.1f} us"
+          f" ({100 * kern['bound_ms'] / kern['ms']:.1f}% of the {1e3 * kern['bound_ms']:.2f} us"
+          f" bound, {kern['bound_by']}), plain {kern['plain_ms']:.3f} ms, cholesky_ex"
+          f" {kern['library_ms']:.3f} ms; {launched} launches of G for 16 kernel runs", flush=True)
+    rows = {}
+    old = nonfactor._BLOCKED_FROM
+    try:
+        for n in FACTOR_ORDERS:
+            cov = validate_kernels._gp_chunk(n, gen, "cuda")
+            b = cov.shape[0]
+            y = torch.randn(n, dtype=torch.float64, device="cuda", generator=gen)
+            mu = 0.1 * torch.randn(b, n, dtype=torch.float64, device="cuda", generator=gen)
+            got, got_info = nonfactor.blocked_cholesky(cov)
+            want, want_info = torch.linalg.cholesky_ex(cov)
+            torch.cuda.synchronize()
+            err = validate_kernels._rel(got, want, want_info == 0)
+            row = {"draws": b, "blocked_ms": median_ms(lambda: nonfactor.blocked_cholesky(cov)),
+                   "cholesky_ex_ms": median_ms(lambda: torch.linalg.cholesky_ex(cov))}
+            for name, start in (("terms_blocked_ms", 0), ("terms_cholesky_ex_ms", 1 << 30)):
+                nonfactor._BLOCKED_FROM = start
+                row[name] = median_ms(lambda: nonfactor._precision_terms(y, mu, cov=cov))
+            nonfactor._BLOCKED_FROM = old
+            rows[n] = row
+            check(err < validate_kernels.FACTOR_TOL and torch.equal(got_info, want_info),
+                  f"1d: N = {n}, {b} draws (one not positive definite): the blocked factor"
+                  f" within {err:.3g} of cholesky_ex, info equal; factor {row['blocked_ms']:.3f}"
+                  f" ms against {row['cholesky_ex_ms']:.3f}, a chunk's terms"
+                  f" {row['terms_blocked_ms']:.3f} ms against {row['terms_cholesky_ex_ms']:.3f}"
+                  f" (route at N: {'blocked' if nonfactor._blocked_route('cuda', n) else 'cholesky_ex'})")
+            del cov, got, want, mu
+    finally:
+        nonfactor._BLOCKED_FROM = old
+    def taken(n, row):  # the chunk's terms on the route N takes, and on the other
+        pair = (row["terms_blocked_ms"], row["terms_cholesky_ex_ms"])
+        return pair if nonfactor._blocked_route("cuda", n) else pair[::-1]
+
+    slower = [n for n, row in rows.items() if taken(n, row)[0] > 1.05 * taken(n, row)[1]]
+    check(not slower, f"1d: the route's crossover (blocked from N = {old}) takes at each order"
+          f" the route whose chunk's terms are the faster, or within 5% of it"
+          + (f"; slower at {slower}" if slower else ""))
+    kern["by_order"] = rows
+
+
+def phase_factor_alone() -> int:
+    """Phase 1d alone; returns the failures' count.  On a machine with a
+    card, from the root of the repository::
+
+        python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.phase_factor_alone())"
+    """
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from pyloo_tpu_torch import _build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi, torch.__version__, torch.version.cuda, flush=True)
+    _build.load()
+    kern = {"max_abs_err": 0.0}
+    phase_factor(kern)
+    print(json.dumps({key: kern[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                   "max_abs_err", "by_order")}))
+    print(f"chip_smoke: {len(_FAILURES)} check(s) failed", flush=True)
+    return len(_FAILURES)
 
 
 def hold_variant(kern: dict, letter: str, variant: str, plains, x, k: int, what: str) -> None:
@@ -3425,7 +3550,7 @@ def phase_edge(pl, smi: str, kernels: dict, model, reff: float, phase5: dict,
           f" non-tail mass one pass flushes to 0 and the merge keeps below 1e-38")
     del x, got, want
     launched = read_counts(main_path=False)
-    check(launched == {**calls, "E": 0, "F": 0},
+    check(launched == {**calls, "E": 0, "F": 0, "G": 0},
           f"14a launches: A {launched['A']}, B {launched['B']}, C {launched['C']},"
           f" D {launched['D']} (the holds' calls: {calls})")
 
@@ -3888,10 +4013,14 @@ def main() -> int:
                                "pyloo_tpu_torch/csrc/psis_tail_fit.cu",
                                "none: pyloo_tpu/ops/loo_kernels.py's _psis_tail_scores, fused"
                                " by XLA"),
+        "chol_block": entry("chol_block (kernel G, the float64 blocked Cholesky's diagonal block)",
+                            "pyloo_tpu_torch/csrc/chol_block.cu",
+                            "none: pyloo_tpu/ops/nonfactor.py's jnp.linalg.cholesky"),
     }
     phase_kernels(kernels, tail_length)
     phase_variants(kernels)
     phase_fit(kernels["psis_tail_fit"], tail_length)
+    phase_factor(kernels["chol_block"])
     ll_host, beta, model, res32, _ = phase_main_path(pl, kernels)
     reff = compute_reff(pl.from_dict(posterior={"beta": beta}), None, beta.shape[0] * beta.shape[1])
     res64 = phase_float64(pl, ll_host, beta, res32)
@@ -3925,7 +4054,8 @@ def main() -> int:
         print(f"chip_smoke: {len(_FAILURES)} check(s) failed", file=sys.stderr)
         return 1
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms", "torch_topk_ms", "by_shape", "splits")
+            "bound_ms", "bound_by", "library_ms", "torch_topk_ms", "by_shape", "splits",
+            "by_order")
     print(json.dumps({"kernels": [
         {key: kern[key] for key in keys if key in kern} for kern in kernels.values()
     ]}))

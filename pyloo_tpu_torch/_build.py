@@ -2,7 +2,8 @@
 
 The sources under ``csrc/`` are compiled with ``nvcc`` for ``sm_90a``, one
 ``nvcc`` process per source, all started together, and linked into one
-shared library with a plain C interface, loaded with :mod:`ctypes`.  The
+shared library with a plain C interface (and cuBLAS, whose batched DGEMM
+the blocked factor calls), loaded with :mod:`ctypes`.  The
 build happens at the first kernel launch (never at import), from the
 package's own sources, into ``build/pyloo_tpu_torch/`` beside the package.
 The library name carries a hash of the sources, so an edited source is
@@ -25,14 +26,16 @@ __all__ = ["BUILD_DIR", "build", "is_built", "load"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "pyloo_tpu_torch"
-_SOURCES = ("topk_prepass.cu", "topk_bitonic.cu", "psis_tail_fit.cu")
+_SOURCES = ("topk_prepass.cu", "topk_bitonic.cu", "psis_tail_fit.cu", "chol_block.cu")
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+_LINK_FLAGS = ("-lcublas",)  # the blocked factor's batched products (csrc/chol_block.cu)
 
 _VOID_P = ctypes.c_void_p
 _INT = ctypes.c_int
+_LONG = ctypes.c_longlong
 _lib: ctypes.CDLL | None = None
 build_log: str = ""  # nvcc's output of the library's build (ptxas register/smem use)
 
@@ -56,7 +59,7 @@ def _lib_path() -> Path:
     digest = hashlib.sha256()
     for name in _SOURCES:
         digest.update((_CSRC / name).read_bytes())
-    digest.update(" ".join(_NVCC_FLAGS).encode())
+    digest.update(" ".join(_NVCC_FLAGS + _LINK_FLAGS).encode())
     return BUILD_DIR / f"libpyloo_kernels_{digest.hexdigest()[:16]}.so"
 
 
@@ -96,7 +99,7 @@ def build() -> Path:
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n{out}")
         tmp = work / lib_path.name
-        link = [_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]
+        link = [_nvcc(), "-shared", "-o", str(tmp), *map(str, objs), *_LINK_FLAGS]
         proc = subprocess.run(link, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
@@ -138,6 +141,15 @@ def load() -> ctypes.CDLL:
             _VOID_P, _VOID_P, _VOID_P, _VOID_P,
         ]
         lib.pyloo_psis_tail_fit_f32.restype = _INT
+        lib.pyloo_chol_block_f64.argtypes = [
+            _INT, _VOID_P, _LONG, _INT, _VOID_P, _LONG, _INT, _VOID_P, _LONG, _INT,
+            _VOID_P, _INT, _INT, _INT, _VOID_P,
+        ]
+        lib.pyloo_chol_block_f64.restype = _INT
+        lib.pyloo_blocked_cholesky_f64.argtypes = [
+            _INT, _VOID_P, _LONG, _INT, _VOID_P, _VOID_P, _VOID_P, _VOID_P, _INT, _INT, _VOID_P,
+        ]
+        lib.pyloo_blocked_cholesky_f64.restype = _INT
         lib.pyloo_error_string.argtypes = [_INT]
         lib.pyloo_error_string.restype = ctypes.c_char_p
         _lib = lib

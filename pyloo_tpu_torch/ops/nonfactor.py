@@ -17,6 +17,16 @@ through a batched Cholesky factorisation, ``cov = L L^T`` and
 by its ``info``; such a draw's row is ``-inf``, which is what ``pyloo_tpu``
 gets from the NaN factor ``jnp.linalg.cholesky`` returns.
 
+On a card from N = ``_BLOCKED_FROM`` the factor is blocked
+(:func:`blocked_cholesky`): block column ``j`` of width ``_NB`` is the
+caller's matrix less one batched product of the columns before it, its
+diagonal block factored and inverted by kernel G (:func:`chol_block`,
+``csrc/chol_block.cu``) and the rest of it one batched product with that
+inverse.  The ``N³ / 3`` flops go to the tensor cores, where cuSOLVER's
+``potrfBatched`` (``cholesky_ex``'s route for a batch) takes ~390 launches
+a chunk of eight 2,048 x 2,048 matrices at ~4 TFLOP/s; smaller matrices,
+whose chunks hold hundreds of draws, keep ``cholesky_ex``, as does the CPU.
+
 On a card the inverse factor of N > 256 is merged from the inverses of
 its diagonal blocks by batched matrix products (:func:`_merged_inverse`):
 ``2 N³ / 3`` flops on the tensor cores, where a triangular solve against
@@ -40,8 +50,9 @@ devices in turn, each factorising its own: the draw axis is sharded, as
 Each chunk is two spans, ``pyloo.draws.generate`` (the source's chunk) and
 ``pyloo.draws.factor`` (queueing the factorisation, the inverse and the
 terms), with the chunk ``c`` and the shard ``j``; the counters
-``factor_draws`` (by form) and ``h2d_bytes`` (kind ``draws``: the bytes of
-a chunk's inputs that start in host memory) record while a profiler does.
+``factor_draws`` (by form), ``blocked_factor_draws`` (the draws the blocked
+factor took) and ``h2d_bytes`` (kind ``draws``: the bytes of a chunk's
+inputs that start in host memory) record while a profiler does.
 """
 
 from __future__ import annotations
@@ -51,12 +62,14 @@ import math
 import numpy as np
 import torch
 
+from .. import _build
 from .._common import compute_device
 from ..parallel.sharding import device_scope
 from ..profiling import count, span
+from .topk import _cuda_device, _raise_on
 
 __all__ = ["mvn_conditional_loglik", "mvt_conditional_loglik", "conditional_loglik",
-           "draws_per_chunk"]
+           "draws_per_chunk", "blocked_cholesky", "chol_block", "chol_block_plain"]
 
 # Device memory for one chunk of draws: _MATRICES_PER_DRAW (N, N) float64
 # matrices a draw
@@ -138,6 +151,153 @@ def _merged_inverse(chol):
     return out
 
 
+# the blocked factor's block width (kernel G's widest block), and the
+# order from which a card takes it (measured on an H100 at
+# draws_per_chunk(N) draws a chunk: PERF.md)
+_NB = 128
+_BLOCKED_FROM = 256
+_CUBLAS_ERROR = 10000  # the library's codes of cuBLAS's failures start there
+
+
+def _blocked_route(device_type: str, n: int) -> bool:
+    """True where :func:`_precision_terms` factors by :func:`blocked_cholesky`:
+    on a card from order ``_BLOCKED_FROM``; ``cholesky_ex`` elsewhere."""
+    return device_type == "cuda" and n >= _BLOCKED_FROM
+
+
+def chol_block_plain(c):
+    """Plain version of kernel G: ``(L, W, info)`` of a batch of lower
+    triangles ``c`` (B, w, w): the factor ``L`` with zeros above its
+    diagonal, ``W = L^{-1}``, and ``info`` (B,) int32, 0 or the first column
+    (1-based) whose pivot is <= 0 or not finite.  A failed block's ``L``
+    and ``W`` hold what ``cholesky_ex`` and the solve leave."""
+    chol, info = torch.linalg.cholesky_ex(c)
+    w = _solve_inverse(chol)
+    nonfinite = ~torch.isfinite(torch.diagonal(chol, dim1=-2, dim2=-1))
+    first = torch.where(nonfinite.any(dim=1), nonfinite.int().argmax(dim=1) + 1, 0)
+    info = torch.where((info > 0) & ((first == 0) | (info < first)), info, first)
+    return chol, w, info.to(torch.int32)
+
+
+def _stream_of(t):
+    """The device index and current stream of a CUDA tensor, for a launch."""
+    device = _cuda_device(t.device)
+    return device.index, torch.cuda.current_stream(device).cuda_stream
+
+
+def _count_g(device: int, launches: int = 1) -> None:
+    """Kernel G's launches on ``device`` (an index) in its counters."""
+    chol_block.launches += launches
+    key = f"cuda:{device}"
+    chol_block.by_device[key] = chol_block.by_device.get(key, 0) + launches
+
+
+def chol_block(c, l_out, w_out, info, k0: int = 0) -> None:
+    """Kernel G: the diagonal block of :func:`blocked_cholesky`.
+
+    Factors the lower triangles of ``c`` (B, w, w) float64, ``w <= _NB``,
+    into ``l_out`` (``L``, zeros above its diagonal) and ``w_out``
+    (``L^{-1}``), both (B, w, w) views, and sets ``info`` (B,) int32 to
+    ``k0`` + the block's first failed column where it is 0 (LAPACK's
+    ``info`` of the whole matrix when the blocks go in order).  A CUDA
+    tensor launches ``csrc/chol_block.cu`` on its device and current
+    stream, counted in ``launches`` and ``by_device``; a CPU tensor takes
+    :func:`chol_block_plain`.  Every matrix needs contiguous rows (column
+    stride 1)."""
+    b, w = c.shape[0], c.shape[-1]
+    for name, t in (("c", c), ("l_out", l_out), ("w_out", w_out)):
+        if t.shape != (b, w, w) or t.dtype != torch.float64 or t.device != c.device:
+            raise ValueError(f"{name} must be ({b}, {w}, {w}) float64 on {c.device}, got"
+                             f" {tuple(t.shape)} {t.dtype} on {t.device}")
+        if w > 1 and t.stride(-1) != 1:
+            raise ValueError(f"{name}'s rows must be contiguous (column stride 1)")
+    if info.shape != (b,) or info.dtype != torch.int32 or info.device != c.device:
+        raise ValueError(f"info must be ({b},) int32 on {c.device}")
+    if w > _NB:
+        raise ValueError(f"kernel G takes blocks of at most {_NB} columns, got {w}")
+    if b == 0:
+        return
+    if c.device.type == "cpu":
+        chol, inv, got = chol_block_plain(c)
+        l_out.copy_(chol)
+        w_out.copy_(inv)
+        info.copy_(torch.where((info == 0) & (got > 0), got + k0, info))
+        return
+    lib, (device, stream) = _build.load(), _stream_of(c)
+    code = lib.pyloo_chol_block_f64(
+        device, c.data_ptr(), c.stride(0), max(c.stride(1), w), l_out.data_ptr(),
+        l_out.stride(0), max(l_out.stride(1), w), w_out.data_ptr(), w_out.stride(0),
+        max(w_out.stride(1), w), info.data_ptr(), b, w, k0, stream)
+    _raise_on(code, lib, "chol_block")
+    _count_g(device)
+
+
+chol_block.launches = 0
+chol_block.by_device = {}
+
+
+def _block(t, r0: int, c0: int, rows: int, cols: int, transpose: bool = False):
+    """``t[:, r0:r0 + rows, c0:c0 + cols]`` of a batch of matrices, or its
+    transpose, as one strided view."""
+    sb, sr, sc = t.stride()
+    size, stride = ((cols, rows), (sc, sr)) if transpose else ((rows, cols), (sr, sc))
+    return t.as_strided((t.shape[0], *size), (sb, *stride), t.storage_offset() + r0 * sr + c0 * sc)
+
+
+def blocked_cholesky(a):
+    """``(L, info)`` of a batch ``a`` (B, n, n) float64 as
+    ``torch.linalg.cholesky_ex(a)`` gives them (the lower triangle read,
+    ``L`` zero above its diagonal, ``info`` 0 or the first failed column),
+    factored left-looking over block columns of width ``_NB``: for the
+    block column from ``k0`` to ``k1``
+
+        C = A[:, k0:, k0:k1] - L[:, k0:, :k0] L[:, k0:k1, :k0]^T   (one batched product)
+        L_jj, W_jj = chol_block(C[:, :w])                           (kernel G, W_jj = L_jj^{-1})
+        L[:, k1:, k0:k1] = C[:, w:] W_jj^T                          (one batched product)
+
+    ``a`` is read as it is and ``L`` written once, freshly zeroed.  A
+    failed draw's later blocks may hold NaN; the products are batched, so
+    they reach no other draw.  On a card one call to the library queues a
+    block column's copy, products and kernel G in turn (Python's three
+    calls and their views a block column took as long as the card's work
+    a chunk); on the CPU this loop does, with :func:`chol_block`'s plain
+    version."""
+    if a.shape[-1] > 1 and a.stride(-1) != 1:
+        a = a.contiguous()
+    b, n = a.shape[0], a.shape[-1]
+    chol = a.new_zeros(a.shape)
+    info = torch.zeros(b, dtype=torch.int32, device=a.device)
+    if b == 0:
+        return chol, info
+    width = min(_NB, n)
+    w_jj = a.new_empty((b, width, width))
+    col_buf = a.new_empty((b, n, width)) if n > _NB else None
+    if a.device.type != "cpu":
+        lib, (device, stream) = _build.load(), _stream_of(a)
+        code = lib.pyloo_blocked_cholesky_f64(
+            device, a.data_ptr(), a.stride(0), max(a.stride(1), n), chol.data_ptr(),
+            0 if col_buf is None else col_buf.data_ptr(), w_jj.data_ptr(), info.data_ptr(), b, n,
+            stream)
+        if code >= _CUBLAS_ERROR:
+            raise RuntimeError(f"blocked_cholesky: cuBLAS status {code - _CUBLAS_ERROR}")
+        _raise_on(code, lib, "blocked_cholesky")
+        _count_g(device, -(-n // _NB))
+        return chol, info
+    for k0 in range(0, n, _NB):
+        k1 = min(k0 + _NB, n)
+        w, m = k1 - k0, n - k0
+        col = _block(a, k0, k0, m, w)
+        if k0:
+            col = torch.baddbmm(col, _block(chol, k0, 0, m, k0), _block(chol, k0, 0, w, k0, True),
+                                alpha=-1, out=_block(col_buf, 0, 0, m, w))
+        inv = _block(w_jj, 0, 0, w, w)
+        chol_block(_block(col, 0, 0, w, w), _block(chol, k0, k0, w, w), inv, info, k0)
+        if k1 < n:
+            torch.bmm(_block(col, w, 0, m - w, w), _block(inv, 0, 0, w, w, True),
+                      out=_block(chol, k1, k0, m - w, w))
+    return chol, info
+
+
 def _tri_inverse(chol):
     """``L^{-1}``: merged from blocks on a card (:func:`_merged_inverse`),
     where the triangular solve is launch bound, by the solve elsewhere,
@@ -155,7 +315,11 @@ def _precision_terms(y, mu, cov=None, prec=None):
         cbar = torch.diagonal(prec, dim1=1, dim2=2)
         quad = torch.einsum("si,si->s", r, g)
         return g, cbar, quad, None
-    chol, info = torch.linalg.cholesky_ex(cov)
+    if _blocked_route(cov.device.type, cov.shape[-1]):
+        chol, info = blocked_cholesky(cov)
+        count("blocked_factor_draws", "cov", r.shape[0])
+    else:
+        chol, info = torch.linalg.cholesky_ex(cov)
     failed = info != 0
     linv = _tri_inverse(chol)
     lr = torch.bmm(linv, r[:, :, None])  # L^{-1} r

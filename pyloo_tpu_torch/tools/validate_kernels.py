@@ -32,7 +32,12 @@ programs as they run on the card, in eight sections:
   on the CPU.
 * ``nonfactor`` -- MVN / MVT conditional log-likelihoods against
   brute-force partitioned-normal / direct-formula NumPy at
-  :data:`NONFACTOR_TOL`.
+  :data:`NONFACTOR_TOL`; kernel G (``chol_block``) against its plain
+  version on a chunk of whole and of ragged blocks, and the blocked factor
+  (``blocked_cholesky``) against ``cholesky_ex`` at the orders of
+  :data:`BLOCKED_N`, each within :data:`FACTOR_TOL` on the sound draws,
+  with a chunk that holds one draw that is not positive definite: the
+  same draws fail, with the same ``info``.
 * ``mm`` -- the device-batched moment-matching program against the host
   greedy loop on a fitted outlier model at :data:`MM_TOL`, split and not.
 
@@ -95,6 +100,14 @@ MULTI_ULPS = 8.0
 EXACT_TOL = 1e-8  # float64 PSIS against the NumPy oracle
 ELOO_TOL = 1e-8  # weighted moments and quantiles against NumPy float64
 NONFACTOR_TOL = 1e-7  # conditional log-likelihoods against brute force
+# the blocked factor's orders on the card (the benchmark cell's 2,048, a
+# ragged last block at 300 and 2,100) and on the CPU; kernel G and the
+# blocked factor hold to their references within FACTOR_TOL (relative to
+# the largest entry): float64 factors of well-conditioned matrices agree to
+# ~1e-14
+BLOCKED_N = (300, 512, 2048, 2100)
+BLOCKED_N_CPU = (5, 130, 300)
+FACTOR_TOL = 1e-12
 MM_TOL = 1e-8  # device-batched moment matching against the host loop
 
 # The card's edges.  S: below, at and past a warp's 32 lanes, not a multiple
@@ -803,6 +816,66 @@ def section_nonfactor(run: Run, shapes=((12, 5), (48, 4))) -> None:
             err = float(np.max(np.abs(got - want)))
             run.record("nonfactor", name, err < NONFACTOR_TOL, err, n_obs=n_obs,
                        n_draws=n_draws, oracle="partitioned brute force")
+    section_factor(run)
+
+
+def _gp_chunk(n: int, gen, device, draws=None) -> torch.Tensor:
+    """``draws`` (``draws_per_chunk(n)``) squared-exponential covariances at points on
+    [0, 10], ``(alpha, rho, sigma)`` jittered around (1, 1, 0.3), the
+    second draw replaced by ``-I`` (not positive definite)."""
+    from ..ops.nonfactor import draws_per_chunk
+
+    b = draws_per_chunk(n) if draws is None else draws
+    x = 10.0 * torch.rand(n, dtype=torch.float64, device=device, generator=gen)
+    d2 = (x[:, None] - x[None, :]).square()
+    theta = torch.tensor([1.0, 1.0, 0.3], dtype=torch.float64, device=device) * torch.exp(
+        0.05 * torch.randn(b, 3, dtype=torch.float64, device=device, generator=gen))
+    alpha, rho, sigma = (theta[:, i, None, None] for i in range(3))
+    eye = torch.eye(n, dtype=torch.float64, device=device)
+    cov = alpha.square() * torch.exp(-d2 / (2 * rho.square())) + sigma.square() * eye
+    cov[min(1, b - 1)] = -eye
+    return cov
+
+
+def _rel(got, want, ok) -> float:
+    """``max |got - want| / max |want|`` over the draws ``ok``."""
+    return float((got[ok] - want[ok]).abs().max() / want[ok].abs().max())
+
+
+def section_factor(run: Run, blocked_n=None) -> None:
+    """Kernel G against its plain version on eight 128 x 128 and 44 x 44
+    blocks, and the blocked factor against ``cholesky_ex`` at the orders
+    ``blocked_n`` (:data:`BLOCKED_N` on a card, a chunk of
+    ``draws_per_chunk(n)`` draws; :data:`BLOCKED_N_CPU` and 3 draws
+    elsewhere), each chunk with one draw that is not positive definite.
+    Part of the ``nonfactor`` section."""
+    from ..ops.nonfactor import blocked_cholesky, chol_block, chol_block_plain
+
+    for width in (128, 44):  # the cell's blocks, and a ragged last one (N = 300)
+        c = _gp_chunk(width, run.gen, run.device, draws=8)
+        l, w = torch.zeros_like(c), torch.zeros_like(c)
+        info = torch.zeros(c.shape[0], dtype=torch.int32, device=run.device)
+        chol_block(c, l, w, info, 0)
+        pl, pw, pinfo = chol_block_plain(c)
+        sync(run.device)
+        ok = pinfo == 0
+        err = max(_rel(l, pl, ok), _rel(w, pw, ok))
+        zeros = bool(torch.equal(torch.tril(l[ok]), l[ok]) and torch.equal(torch.tril(w[ok]), w[ok]))
+        run.record("nonfactor", "G", err < FACTOR_TOL and zeros and torch.equal(info, pinfo), err,
+                   width=width, n_draws=c.shape[0], failed=int((info != 0).sum()),
+                   oracle="chol_block_plain")
+    for n in (BLOCKED_N if run.on_card else BLOCKED_N_CPU) if blocked_n is None else blocked_n:
+        cov = _gp_chunk(n, run.gen, run.device, draws=None if run.on_card else 3)
+        got, info = blocked_cholesky(cov)
+        want, want_info = torch.linalg.cholesky_ex(cov)
+        sync(run.device)
+        ok = want_info == 0
+        err = _rel(got, want, ok)
+        zeros = bool(torch.equal(torch.tril(got[ok]), got[ok]))
+        run.record("nonfactor", "blocked_cholesky",
+                   err < FACTOR_TOL and zeros and torch.equal(info, want_info), err, n_obs=n,
+                   n_draws=cov.shape[0], failed=int((info != 0).sum()), oracle="cholesky_ex")
+        del cov, got, want
 
 
 # The outlier model's fit: the draws moment matching then improves.  4
