@@ -151,12 +151,6 @@ Phases:
    phase 5's bit for bit; (c) the same rows on phase 6's 262,144-row cut
    through ``loo_from_file``, ``loo_compare_streaming``, float32 ``loo()``,
    ``loo_group`` and ``loo_subsample``, each a launch window of its own;
-15. the benchmark's two cells (``bench_torch/``), once each through its own
-   functions: ``loo_streaming`` at 1,000,000 x 4,000 float32 with the model
-   on the card, and float64 ``loo()`` on a host array of the model's first
-   262,144 observations, each held by its gate to the plain float64
-   reference (``bench_torch/reference.py``) on 512 seeded rows, each a
-   launch window of its own, with its wall time;
 16. the repo's two verification harnesses, ported
    (``pyloo_tpu_torch/tools/validate_kernels.py``, every section: kernels
    A-D bitwise to their plain versions over the card's envelope, S 2 to
@@ -794,23 +788,41 @@ def phase_variants(kernels: dict) -> None:
     print(f"  time  torch.topk ({b}, {s}) k={k}: {e['library_ms']:.3f} ms", flush=True)
 
 
+def logistic_model(n_obs: int, chains: int, draws: int, seed: int, devices=("cuda:0",)):
+    """The benchmark's ``logit32_s4000`` model (``benchmark.model.LogisticModel``)
+    at ``n_obs`` observations and ``chains`` x ``draws`` draws, made from
+    ``seed`` on the first of ``devices`` and copied to the others."""
+    from benchmark.model import LogisticModel
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "benchmark", "configs", "logit32_s4000.json")) as fh:
+        config = json.load(fh)
+    return LogisticModel({**config, "chains": chains, "draws": draws}, n_obs, seed, devices)
+
+
+def model_tensors(model):
+    """``(xw, yw, beta)`` of a ``LogisticModel`` on its first device, ``beta``
+    as (chains, draws, 32)."""
+    xw, yw, _ = next(iter(model.copies.values()))
+    return xw, yw, model.beta
+
+
 def logistic_log_lik(n_obs: int, chains: int, draws: int, seed: int):
     """Host (chain, draw, obs) float32 log-likelihood of a logistic regression
     with 32 features, computed on the card; ``beta`` as its posterior; and
-    the model on the card, ``(xw, yw, beta)``."""
+    the model on the card, a ``LogisticModel``."""
     import numpy as np
     import torch
 
-    from bench_torch import model as bench_model
-
-    xw, yw, beta = bench_model.logistic_model(n_obs, chains, draws, seed, "cuda")
+    model = logistic_model(n_obs, chains, draws, seed)
+    xw, yw, beta = model_tensors(model)
     zero = xw.new_zeros(())
     ll = np.empty((chains, draws, n_obs), np.float32)
     for c in range(chains):
         eta = beta[c] @ xw.T  # (draws, obs), full float32 (no TF32)
         torch.from_numpy(ll[c]).copy_(yw * eta - torch.logaddexp(eta, zero))
         del eta
-    return ll, beta.cpu().numpy(), (xw, yw, beta)
+    return ll, beta.cpu().numpy(), model
 
 
 def obs_major(ll_host, n_rows: int, start: int = 0):
@@ -1009,13 +1021,11 @@ def phase_streaming(pl, ll_host, model, reff: float, res32, res64) -> dict:
     from pyloo_tpu_torch.ops.psis import tail_length
     from pyloo_tpu_torch.ops.topk import _CUTOFF_FLOOR, overflow_rows
     from pyloo_tpu_torch.streaming._chunks import resolve_chunk
-    from bench_torch import model as bench_model
 
     print("phase 5: loo_streaming float32 at 1,000,000 x 4,000, the model on the card",
           flush=True)
-    xw, _, beta = model
-    n_obs, s = xw.shape[0], beta.shape[0] * beta.shape[1]
-    log_lik_fn = bench_model.log_lik_fn(model)
+    n_obs, s = model.n_obs, model.n_draws
+    log_lik_fn = model.log_lik_fn()
 
     m_tail = tail_length(s, reff)
     chunk, n_chunks = resolve_chunk(None, n_obs, s, torch.float32)
@@ -1467,7 +1477,7 @@ def phase_scoring(pl, ll_host, beta, model, reff: float, res32, phase5: dict, wa
 
     score_mod = sys.modules["pyloo_tpu_torch.loo_score"]
     stream_compare = sys.modules["pyloo_tpu_torch.streaming.compare"]
-    xw, yw, beta_c = model
+    xw, yw, beta_c = model_tensors(model)
     chains, draws = beta_c.shape[0], beta_c.shape[1]
     n_obs, s = xw.shape[0], chains * draws
     print(f"phase 7: scoring and model comparison at {n_obs} x {s} ({smi})", flush=True)
@@ -1772,7 +1782,7 @@ def phase_disk(pl, ll_host, model, reff: float, phase5: dict, waic32, smi: str,
     from pyloo_tpu_torch.streaming import _accumulate, _chunks
     from pyloo_tpu_torch.streaming.expectations import ELOO_CHUNK_BUDGET
 
-    xw, yw, beta_c = model
+    xw, yw, beta_c = model_tensors(model)
     chains, draws = beta_c.shape[0], beta_c.shape[1]
     n_obs, s = xw.shape[0], chains * draws
     gb = n_rows * s * 4 / 1e9
@@ -2011,7 +2021,7 @@ def phase_subsample(pl, ll_host, beta, model, reff: float, res32, phase5: dict, 
     from pyloo_tpu_torch.estimators import subsample_indices
     from pyloo_tpu_torch.streaming import _chunks
 
-    xw, yw, beta_c = model
+    xw, yw, beta_c = model_tensors(model)
     chains, draws = beta_c.shape[0], beta_c.shape[1]
     n_obs, s = xw.shape[0], chains * draws
     print(f"phase 9: subsampled LOO and LOO for an approximate posterior at {n_obs} x {s}"
@@ -2782,7 +2792,6 @@ def first_use_child(mode: str, reff: float) -> None:
     import pyloo_tpu_torch as pl
 
     out = {"mode": mode, "import_s": time.perf_counter() - t, "calls": []}
-    from bench_torch import model as bench_model
 
     torch.backends.cuda.matmul.allow_tf32 = False
     pl.rcParams["device.device"] = "cuda"
@@ -2794,10 +2803,10 @@ def first_use_child(mode: str, reff: float) -> None:
         out["warmup_s"] = time.perf_counter() - t
         out["warmup_launches"] = read_counts()
     t = time.perf_counter()
-    model = bench_model.logistic_model(n_obs, 4, 1_000, 7, "cuda")
+    model = logistic_model(n_obs, 4, 1_000, 7)
     torch.cuda.synchronize()
     out["model_s"] = time.perf_counter() - t
-    log_lik_fn = bench_model.log_lik_fn(model)
+    log_lik_fn = model.log_lik_fn()
     for _ in range(1 if mode == "warmup" else 2):
         zero_counts()
         t = time.perf_counter()
@@ -2893,7 +2902,6 @@ def phase_first_use(pl, smi: str, model, reff: float, phase5: dict, ll_wells) ->
     from pyloo_tpu_torch.models import pymc_adapter
     from pyloo_tpu_torch.models.wrapper import map_draws
     from pyloo_tpu_torch.profiling import Throughput, annotate, trace
-    from bench_torch import model as bench_model
 
     print(f"phase 12: warmup, ingestion, profiling and the PyMC bridge ({smi})", flush=True)
     pl.rcParams["device.device"] = "cuda"
@@ -3007,14 +3015,14 @@ def phase_first_use(pl, smi: str, model, reff: float, phase5: dict, ll_wells) ->
     # (c) phase 5's loo_streaming under trace(), its kernels named in the file
     log_dir = tempfile.mkdtemp(prefix="pyloo_trace_")
     try:
-        n_obs, s = model[0].shape[0], model[2].shape[0] * model[2].shape[1]
+        n_obs, s = model.n_obs, model.n_draws
         meter = Throughput()
         zero_counts()
         t = [time.perf_counter()]
         with trace(log_dir):
             t.append(time.perf_counter())  # the profiler started
             with meter.measure(n_items=n_obs), annotate("loo_streaming"):
-                res = pl.loo_streaming(bench_model.log_lik_fn(model), n_obs, s, reff=reff,
+                res = pl.loo_streaming(model.log_lik_fn(), n_obs, s, reff=reff,
                                        dtype="float32", pointwise=True)
                 torch.cuda.synchronize()
         t.append(time.perf_counter())  # stopped and exported
@@ -3086,7 +3094,6 @@ def phase_mesh(pl, smi: str, model, reff: float, phase5: dict, ll_cut) -> None:
     from pyloo_tpu_torch.ops import topk
     from pyloo_tpu_torch.parallel import Mesh, witness
     from pyloo_tpu_torch.streaming._chunks import resolve_chunk
-    from bench_torch import model as bench_model
 
     n_cards = torch.cuda.device_count()
     cards = subprocess.run(
@@ -3121,12 +3128,11 @@ def phase_mesh(pl, smi: str, model, reff: float, phase5: dict, ll_cut) -> None:
         del x, vals, top
 
     # (b) phase 5's loo_streaming over the mesh, the model on each card
-    n_obs, s = model[0].shape[0], model[2].shape[0] * model[2].shape[1]
-    copies = {d: tuple(t.to(d) for t in model) for d in set(mesh.devices)}
-    fns = {d: bench_model.log_lik_fn(copies[d]) for d in copies}
-
-    def log_lik_fn(idx):  # the generator contract over a mesh: rows on idx.device
-        return fns[idx.device](idx)
+    n_obs, s = model.n_obs, model.n_draws
+    # the same model made again with a copy on each card: rows on idx.device
+    spread = logistic_model(n_obs, model.chains, model.draws, 7,
+                            sorted(set(mesh.devices), key=str))
+    log_lik_fn = spread.log_lik_fn()
 
     chunk, n_chunks = resolve_chunk(None, n_obs, s, torch.float32, mesh=mesh)
     kw = dict(reff=reff, dtype="float32", pointwise=True)
@@ -3189,10 +3195,10 @@ def phase_mesh(pl, smi: str, model, reff: float, phase5: dict, ll_cut) -> None:
     check(scalar_only and len(census["device_to_host"]) > 0,
           f"13b: the transfer census of the call: {summary}; no copy between cards larger"
           f" than {witness.SCALAR_BYTES} bytes")
-    del res, none, got, copies, fns
+    del res, none, got, spread, log_lik_fn
 
     # (c) loo() on phase 6's 262,144-row cut, float32 and float64
-    idata = pl.from_dict(posterior={"beta": model[2].cpu().numpy()},
+    idata = pl.from_dict(posterior={"beta": model.beta.cpu().numpy()},
                          log_likelihood={"y": ll_cut})
 
     def loo_over(one_mesh):
@@ -3252,7 +3258,7 @@ def phase_deep_tail(pl, mesh, ll_cut, model, turns, sizes=(65_536, None)) -> Non
             group = sharding.guard_groups(n_rows, s, 8, None)[0][1]  # the deep row's
             for deep in (False, True):
                 ll_cut[:, :, deep_row] = t2 if deep else saved
-                idata = pl.from_dict(posterior={"beta": model[2].cpu().numpy()},
+                idata = pl.from_dict(posterior={"beta": model.beta.cpu().numpy()},
                                      log_likelihood={"y": np.ascontiguousarray(
                                          ll_cut[:, :, :n_rows])})
                 counts = {}
@@ -3493,7 +3499,6 @@ def phase_edge(pl, smi: str, kernels: dict, model, reff: float, phase5: dict,
     from pyloo_tpu_torch.ops.psis import tail_length
     from pyloo_tpu_torch.parallel.sharding import chunk_rows
     from pyloo_tpu_torch.streaming._chunks import resolve_chunk
-    from bench_torch import model as bench_model
 
     z = dict(wide=(131_072, 4_000), deep=(4_096, 32_768), multi=(8_192, 80_000),
              multi_rows=1_024, n_cut=262_144, n_sample=3_712, planted=(384, 1_000, 641))
@@ -3555,11 +3560,11 @@ def phase_edge(pl, smi: str, kernels: dict, model, reff: float, phase5: dict,
           f" D {launched['D']} (the holds' calls: {calls})")
 
     # (b) loo_streaming at full width with planted rows
-    xw, _, beta = model
-    n_obs, s = xw.shape[0], beta.shape[0] * beta.shape[1]
+    beta = model.beta
+    n_obs, s = model.n_obs, model.n_draws
     masks, values, kinds = plant_patterns(s, device)
     planted = planted_rows(n_obs, z["n_cut"], *z["planted"])
-    clean_fn = bench_model.log_lik_fn(model)
+    clean_fn = model.log_lik_fn()
     log_lik_fn = planted_chunks(clean_fn, n_obs, planted, masks, values)
     chunk, n_chunks = resolve_chunk(None, n_obs, s, torch.float32)
     print(f"phase 14b: loo_streaming float32 at {n_obs} x {s}, {len(planted)} planted rows"
@@ -3732,7 +3737,6 @@ def phase_edge_alone() -> int:
     import pyloo_tpu_torch as pl
     from pyloo_tpu_torch import _build
     from pyloo_tpu_torch._common import compute_reff
-    from bench_torch import model as bench_model
 
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3740,11 +3744,10 @@ def phase_edge_alone() -> int:
     print(smi, flush=True)
     _build.load()
     pl.rcParams["device.device"] = "cuda"
-    model = bench_model.logistic_model(1_000_000, 4, 1_000, 7, "cuda")
-    xw, _, beta = model
-    s = beta.shape[0] * beta.shape[1]
-    reff = compute_reff(pl.from_dict(posterior={"beta": beta.cpu().numpy()}), None, s)
-    res = pl.loo_streaming(bench_model.log_lik_fn(model), xw.shape[0], s, reff=reff,
+    model = logistic_model(1_000_000, 4, 1_000, 7)
+    s = model.n_draws
+    reff = compute_reff(pl.from_dict(posterior={"beta": model.beta.cpu().numpy()}), None, s)
+    res = pl.loo_streaming(model.log_lik_fn(), model.n_obs, s, reff=reff,
                            dtype="float32", pointwise=True)
     phase5 = {"loo_i": res.loo_i.values, "pareto_k": res.pareto_k.values}
     kernels = {key: {"max_abs_err": 0.0} for key in KERNEL_COUNTERS}
@@ -3767,7 +3770,6 @@ def phase_mesh_alone() -> int:
     import pyloo_tpu_torch as pl
     from pyloo_tpu_torch import _build
     from pyloo_tpu_torch._common import compute_reff
-    from bench_torch import model as bench_model
 
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3775,11 +3777,11 @@ def phase_mesh_alone() -> int:
     print(smi, flush=True)
     _build.load()
     pl.rcParams["device.device"] = "cuda"
-    model = bench_model.logistic_model(1_000_000, 4, 1_000, 7, "cuda")
-    xw, yw, beta = model
-    s = beta.shape[0] * beta.shape[1]
+    model = logistic_model(1_000_000, 4, 1_000, 7)
+    xw, yw, beta = model_tensors(model)
+    s = model.n_draws
     reff = compute_reff(pl.from_dict(posterior={"beta": beta.cpu().numpy()}), None, s)
-    res = pl.loo_streaming(bench_model.log_lik_fn(model), xw.shape[0], s, reff=reff,
+    res = pl.loo_streaming(model.log_lik_fn(), model.n_obs, s, reff=reff,
                            dtype="float32", pointwise=True)
     phase5 = {"digest": result_digest(res), "elpd_loo": res["elpd_loo"]}
     zero = xw.new_zeros(())
@@ -3791,41 +3793,6 @@ def phase_mesh_alone() -> int:
     phase_mesh(pl, smi, model, reff, phase5, ll_cut)
     print(f"chip_smoke: {len(_FAILURES)} check(s) failed", flush=True)
     return len(_FAILURES)
-
-
-def phase_bench(smi: str) -> None:
-    """Phase 15: each cell of ``bench_torch`` once, through its functions
-    (one timed call, no trace), its gate applied, its launches counted."""
-    import torch
-
-    from bench_torch import bench
-
-    print(f"phase 15: the benchmark's cells, once each ({smi})", flush=True)
-    for name in (bench.STREAMING_CELL, bench.HOST_CELL):
-        torch.cuda.empty_cache()
-        zero_counts()
-        t = time.perf_counter()
-        res = bench.run_cell(name, bench.SEED, "cuda", repeats=1, profile=False)
-        wall = time.perf_counter() - t
-        got = read_counts()
-        per_call = res["metrics"]["kernel_a_launches_per_call"]["value"]
-        want = res["shape"].get("n_chunks", 0)
-        check(per_call == want and (got["A"] > 0) == (want > 0)
-              and got["B"] == got["C"] == got["D"] == got["E"] == 0,
-              f"15 {name}: kernel A launched {per_call:g} times a call ({want} chunks),"
-              f" {got['A']} in the cell's window (warmup, first and timed call); B-E {got['B']},"
-              f" {got['C']}, {got['D']}, {got['E']}")
-        g = res["gate"]
-        check(g["passed"], f"15 {name}: {g['rows']} rows against the float64 reference, max |d"
-              f" loo_i| {g['max_abs_err_loo_i']:.3g} (rtol/atol {g['tol_loo_i']:g}), max |d k|"
-              f" {g['max_abs_err_k']:.3g} ({g['tol_k']:g}); {g['tie_rows']} cutoff-tie rows,"
-              f" max |d k| {g['max_abs_err_k_tie_rows']:.3g} ({g['tol_tie_rows']:g})")
-        m = res["metrics"]
-        print(f"  time  15 {name}: one call {m['wall_s']['median']:.3f} s"
-              f" ({m['obs_per_sec']['value']:.0f} obs/s), peak device memory"
-              f" {m['peak_device_gb']['value']:.2f} GB; the cell {wall:.1f} s with its set-up"
-              f" ({', '.join(f'{k} {v:.2f}' for k, v in res['setup'].items() if k.endswith('_s'))})"
-              f" on {smi}", flush=True)
 
 
 # phase 16: the fuzz's trials a mode (the modes' shares of it, as the
@@ -4042,7 +4009,6 @@ def main() -> int:
     del ll_cut
     phase_edge(pl, smi, kernels, model, reff, phase5)
     del model
-    phase_bench(smi)
     phase_tools(smi)
 
     for key, kern in kernels.items():

@@ -8,9 +8,6 @@ process: no ``torch.distributed``, no collective.  Each device scores its own
 rows; only per-row outputs and scalars come back.  The draws of
 ``loo_nonfactor`` and the lanes of batched moment matching are sharded the
 same way by their modules.
-
-The module imports torch and the float64 guard of ``ops`` only, so a copy of
-another version of it loads beside this package (``tools/rowwise_pair.py``).
 """
 
 from __future__ import annotations
