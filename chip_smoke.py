@@ -30,6 +30,13 @@ Phases:
    merge;
 3. the default float64 path on the first 250,000 observations, held to the
    float32 results;
+3b. the staged host copy (``_staging.to_device``: a ring of pinned buffers
+   filled by several host threads) against the pageable ``Tensor.to``, by
+   ``torch.equal``, on the host-draws cell's (4, 1000, 262,144) float64
+   array (as it is and cast to float32) and on a ragged float32 shape, with
+   both routes' walls and GB/s, the fill alone on its threads and on one,
+   the pinned copy alone, and ``as_sample_matrix``'s counters on the cell's
+   lazy layout;
 4. ``loo(centered_eight)`` against the published baseline;
 5. ``loo_streaming`` in float32 at 1,000,000 x 4,000 with the model on the
    card (the log-likelihood made chunk by chunk), held to phase 2's ``loo()``;
@@ -171,6 +178,7 @@ fails.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import math
@@ -1013,6 +1021,149 @@ def phase_float64(pl, ll_host, beta, res32):
     )
     return res
 
+
+def phase_staging(pl, model) -> dict:
+    """Phase 3b; returns its numbers (walls in s, rates in GB/s)."""
+    import numpy as np
+    import torch
+
+    from pyloo_tpu_torch import _staging, profiling
+    from pyloo_tpu_torch.base import as_sample_matrix
+
+    print("phase 3b: the staged host copy against the pageable one", flush=True)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cell = model.host_log_lik_f64(262_144)  # the host-draws cell's array, 8.39 GB
+    ragged = np.random.default_rng(5).standard_normal((3, 997, 40_013), dtype=np.float32)
+    out = {"fill_threads": _staging.FILL_THREADS, "slab_bytes": _staging.SLAB_BYTES,
+           "ring_buffers": _staging.RING_BUFFERS}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        return got, time.perf_counter() - t
+
+    t = time.perf_counter()
+    fresh = _staging.Ring(dev)
+    out["ring_alloc_s"] = time.perf_counter() - t
+    fresh.close()
+    del fresh
+    _staging.ring_for(dev)  # the process's ring, as a first call makes it
+    for name, a, dtype in (("cell_f64", cell, None), ("cell_f64_to_f32", cell, torch.float32),
+                           ("ragged_f32", ragged, None)):
+        src = torch.from_numpy(a)
+        walls = {"pageable": [], "staged": []}
+        same = True
+        for turn in range(3):  # pageable, staged, staged, pageable, ...
+            for route in (("pageable", "staged") if turn % 2 == 0 else ("staged", "pageable")):
+                copy = (lambda: src.to(dev, dtype)) if route == "pageable" else (
+                    lambda: _staging.to_device(src, dev, dtype))
+                got, wall = timed(copy)
+                walls[route].append(wall)
+                if route == "pageable":
+                    want = got
+                del got
+            got = _staging.to_device(src, dev, dtype)
+            same = same and torch.equal(got, want)
+            del got, want
+        row = {route: float(np.median(w)) for route, w in walls.items()}
+        row.update({f"{route}_gbps": a.nbytes / 1e9 / row[route] for route in walls})
+        out[name] = row
+        check(same, f"{name} {a.shape} {a.dtype}: the staged copy equals the pageable one"
+              f" (torch.equal, 3 times); pageable {row['pageable']:.3f} s"
+              f" ({row['pageable_gbps']:.2f} GB/s), staged {row['staged']:.3f} s"
+              f" ({row['staged_gbps']:.2f} GB/s), {_staging.FILL_THREADS} fill threads")
+
+    # the two halves of the route alone: the fill into the ring, the copies out of it
+    ring = _staging.ring_for(dev)
+    flat = cell.reshape(-1)
+    per_slab = _staging.SLAB_BYTES // cell.itemsize
+
+    def fill_all(r):  # the ring's fills with no copy out: a buffer as soon as it is filled
+        filling = collections.deque()
+        for i, lo in enumerate(range(0, flat.size, per_slab)):
+            if len(filling) == _staging.RING_BUFFERS:
+                filling.popleft().result()
+            hi = min(lo + per_slab, flat.size)
+            stage = r.buffers[i % _staging.RING_BUFFERS][: (hi - lo) * 8].view(torch.float64)
+            filling.append(r.pool.submit(np.copyto, stage.numpy(), flat[lo:hi]))
+        for filled in filling:
+            filled.result()
+
+    with ring.lock:
+        for turn in range(2):
+            _, out["fill_s"] = timed(lambda: fill_all(ring))
+        dst = torch.empty(_staging.SLAB_BYTES, dtype=torch.uint8, device=dev)
+        n_copies = -(-cell.nbytes // _staging.SLAB_BYTES)
+
+        def copies():
+            for i in range(n_copies):
+                dst.copy_(ring.buffers[i % _staging.RING_BUFFERS], non_blocking=True)
+
+        timed(copies)
+        _, out["pinned_copy_s"] = timed(copies)
+        del dst
+    threads = _staging.FILL_THREADS
+    _staging.FILL_THREADS = 1
+    try:
+        one = _staging.Ring(dev)
+        _, out["fill_one_thread_s"] = timed(lambda: fill_all(one))
+        one.close()
+    finally:
+        _staging.FILL_THREADS = threads
+    for key in ("fill_s", "fill_one_thread_s", "pinned_copy_s"):
+        out[key.removesuffix("_s") + "_gbps"] = cell.nbytes / 1e9 / out[key]
+    print(f"  fill  {threads} threads {out['fill_s']:.3f} s ({out['fill_gbps']:.2f} GB/s), one"
+          f" thread {out['fill_one_thread_s']:.3f} s ({out['fill_one_thread_gbps']:.2f} GB/s);"
+          f" pinned copies alone {out['pinned_copy_s']:.3f} s ({out['pinned_copy_gbps']:.2f}"
+          f" GB/s); a ring pinned in {out['ring_alloc_s']:.3f} s", flush=True)
+
+    # as_sample_matrix on the cell's lazy (chain, draw, obs) layout: the old
+    # route's matrix bit for bit, every host byte counted through the ring
+    old = pl.rcParams["device.device"], pl.rcParams["device.precision"]
+    pl.rcParams["device.device"], pl.rcParams["device.precision"] = "cuda", "float64"
+    try:
+        lazy = pl.from_dict(log_likelihood={"y": cell}).log_likelihood["y"].stack(
+            __sample__=("chain", "draw"))
+        check(lazy._lazy is not None, "the cell's array stacks lazily")
+        profiling.reset_counters()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            matrix, _, _ = as_sample_matrix(lazy)
+        counted = profiling.counters()
+        profiling.reset_counters()
+        want = torch.from_numpy(cell).to(dev).permute(2, 0, 1).reshape(cell.shape[2], -1)
+        same = torch.equal(matrix, want.contiguous())
+        del matrix, want
+    finally:
+        pl.rcParams["device.device"], pl.rcParams["device.precision"] = old
+    out["counters"] = counted
+    check(same and counted.get("h2d_staged_bytes") == counted.get("h2d_bytes")
+          == {"ingest": cell.nbytes},
+          f"as_sample_matrix of the cell's lazy layout equals the pageable route's matrix"
+          f" ({same}); counters {counted}")
+    print("  staging " + json.dumps(out), flush=True)
+    return out
+
+
+def phase_staging_alone() -> int:
+    """Phase 3b alone; returns the failures' count.  On a machine with a
+    card, from the root of the repository::
+
+        python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.phase_staging_alone())"
+    """
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import pyloo_tpu_torch as pl
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi, torch.__version__, torch.version.cuda, len(os.sched_getaffinity(0)), "cores",
+          flush=True)
+    phase_staging(pl, logistic_model(262_144, 4, 1_000, 7))
+    print(f"chip_smoke: {len(_FAILURES)} check(s) failed", flush=True)
+    return len(_FAILURES)
 
 def phase_streaming(pl, ll_host, model, reff: float, res32, res64) -> dict:
     import numpy as np
@@ -3991,6 +4142,7 @@ def main() -> int:
     ll_host, beta, model, res32, _ = phase_main_path(pl, kernels)
     reff = compute_reff(pl.from_dict(posterior={"beta": beta}), None, beta.shape[0] * beta.shape[1])
     res64 = phase_float64(pl, ll_host, beta, res32)
+    phase_staging(pl, model)
     phase_baseline(pl)
     phase5 = phase_streaming(pl, ll_host, model, reff, res32, res64)
     del res64

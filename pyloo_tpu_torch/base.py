@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ._common import compute_device
+from ._staging import to_device
 from .containers import DataArray
 from .ops import psislw_batch, sislw_batch, tail_length, tislw_batch
 from .parallel import apply_rowwise
@@ -55,7 +56,10 @@ def as_sample_matrix(log_weights):
     lazily stacked :class:`DataArray` (the canonical ``(chain, draw, obs)``
     layout) is copied to the device as its contiguous payload and swapped to
     obs-major there, with ``permute(...).contiguous()`` at device-memory
-    bandwidth; the host never makes the strided transpose copy.
+    bandwidth; the host never makes the strided transpose copy.  A large host
+    payload bound for a CUDA device goes through a ring of pinned buffers
+    filled by several host threads (:func:`._staging.to_device`), with the
+    same result bit for bit.
 
     On the CPU the tensor may share memory with the caller's array: nothing
     writes into it.
@@ -86,7 +90,7 @@ def as_sample_matrix(log_weights):
         if lazy is not None and da.dims == target and lazy[0].flags.c_contiguous:
             base, order, n_collapse = lazy
             count("h2d_bytes", "ingest", base.nbytes)
-            v = torch.from_numpy(base).to(device).permute(order)
+            v = to_device(torch.from_numpy(base), device).permute(order)
             lead = int(np.prod(v.shape[: v.dim() - n_collapse]))
             matrix = v.reshape(max(lead, 1), -1).to(dtype).contiguous()
         else:
@@ -94,7 +98,7 @@ def as_sample_matrix(log_weights):
                 da = da.transpose(*target)
             values = da.values.reshape(-1, S) if obs_dims else da.values.reshape(1, S)
             count("h2d_bytes", "ingest", values.nbytes)
-            matrix = torch.from_numpy(np.ascontiguousarray(values)).to(device, dtype)
+            matrix = to_device(torch.from_numpy(np.ascontiguousarray(values)), device, dtype)
 
         def rebuild_da(lw2d, diag1d):
             lw_da = None
@@ -119,7 +123,7 @@ def as_sample_matrix(log_weights):
         S = log_weights.shape[-1]
         if log_weights.device.type == "cpu":
             count("h2d_bytes", "ingest", log_weights.numel() * log_weights.element_size())
-        matrix = log_weights.detach().reshape(-1, S).to(device, dtype).contiguous()
+        matrix = to_device(log_weights.detach().reshape(-1, S), device, dtype).contiguous()
     else:
         arr = np.asarray(log_weights)
         if arr.ndim == 0:
@@ -127,7 +131,8 @@ def as_sample_matrix(log_weights):
         obs_shape = arr.shape[:-1]
         S = arr.shape[-1]
         count("h2d_bytes", "ingest", arr.nbytes)
-        matrix = torch.from_numpy(np.ascontiguousarray(arr.reshape(-1, S))).to(device, dtype)
+        host = torch.from_numpy(np.ascontiguousarray(arr.reshape(-1, S)))
+        matrix = to_device(host, device, dtype)
 
     def rebuild_array(lw2d, diag1d):
         lw = None if lw2d is None else np.asarray(lw2d).reshape(obs_shape + (S,))

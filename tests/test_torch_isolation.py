@@ -33,7 +33,7 @@ for name in ("base", "psis", "sis", "tis", "waic", "loo_i", "e_loo", "loo_predic
              "models.batched_refit", "helpers", "ops.moment_match", "split_moment_match",
              "loo_moment_match", "loo_kfold", "reloo", "models.nuts", "models.chees",
              "models.advi", "models.laplace", "ops.nonfactor", "loo_nonfactor",
-             "streaming.nonfactor",
+             "streaming.nonfactor", "_staging",
              "parallel", "parallel.sharding", "parallel.witness", "ops.guard",
              "tools.validate_kernels", "tools.fuzz_differential", "tools.oracle"):
     importlib.import_module("pyloo_tpu_torch." + name)
