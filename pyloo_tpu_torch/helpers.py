@@ -18,6 +18,7 @@ from ._common import compute_device
 from .containers import DataArray
 from .models.wrapper import JAXModelWrapper, map_draws
 from .ops.ess import ess_mean
+from .profiling import count
 
 __all__ = [
     "ParameterConverter",
@@ -107,6 +108,7 @@ def log_prob_upars(wrapper: JAXModelWrapper, upars) -> np.ndarray:
     """Unconstrained log joint density per draw: one vmapped call."""
     model = wrapper.model
     draws = _draws_on_device(wrapper, upars)
+    count("host_reads", "moment_match.log_prob_upars")
     return map_draws(model.logp_flat, draws, model.n_obs).cpu().numpy()
 
 
@@ -114,6 +116,7 @@ def log_lik_i_upars(wrapper: JAXModelWrapper, upars, pointwise: bool = True):
     """Pointwise log likelihood at unconstrained draws: (S, n_obs)."""
     model = wrapper.model
     draws = _draws_on_device(wrapper, upars)
+    count("host_reads", "moment_match.log_lik_i_upars")
     ll = map_draws(model.log_lik_flat, draws, model.n_obs).cpu().numpy()
     if pointwise:
         return ll
@@ -133,6 +136,51 @@ def extract_log_likelihood_for_observation(log_lik_result, i: int) -> np.ndarray
     # (chain, draw, obs)
     flat_idx = np.unravel_index(i, values.shape[2:]) if values.ndim > 3 else (i,)
     return values[(slice(None), slice(None)) + tuple(flat_idx)].reshape(-1)
+
+
+def _wrapper_model_fns(model):
+    """The batched loop's model callables for a wrapper's :class:`Model`.
+
+    ``log_prob_fn``: ``(n, S, P) -> (n, S)`` log joint density, vmapped in
+    draw chunks within the evaluation budget of
+    :func:`pyloo_tpu_torch.models.wrapper.map_draws`.
+
+    ``log_lik_col_fn``: ``((n, S, P), obs_idx) -> (n, S)``, each lane's
+    observation's log likelihood at its draws.  A model with static
+    parameter shapes (no ``builder``) is evaluated on the observation's own
+    rows of ``obs_keys`` with the same function, so a call holds ``n x S``
+    values and not ``n x S x n_obs`` (10 GB at 64 x 4,000 x 5,000): its
+    ``log_lik`` is pointwise, entry i reading row i of the observation
+    arrays, as held-out scoring already assumes (``log_likelihood_i``).  A
+    model with a ``builder`` (parameters that track the observations) is
+    evaluated on its full vector, a lane at a time, and indexed.
+    """
+    obs_keys = model.obs_keys
+
+    def log_prob_fn(u):
+        n, S, P = u.shape
+        return map_draws(model.logp_flat, u.reshape(n * S, P), model.n_obs).reshape(n, S)
+
+    def log_lik_col_fn(u, obs_idx):
+        data = model.tensor_data(u.device, u.dtype)
+        if model.builder is not None:
+            return torch.stack([
+                torch.index_select(
+                    map_draws(model.log_lik_flat, u[j], model.n_obs), 1, obs_idx[j : j + 1]
+                )[:, 0]
+                for j in range(u.shape[0])
+            ])
+        static = {k: v for k, v in data.items() if k not in obs_keys}
+        rows = {k: data[k][obs_idx][:, None] for k in obs_keys}  # (n, 1, ...)
+
+        def one(q, own):
+            return model.log_lik(model.unravel(q), {**static, **own})[0]
+
+        return torch.func.vmap(torch.func.vmap(one, in_dims=(0, None)), in_dims=(0, 0))(
+            u, rows
+        )
+
+    return log_prob_fn, log_lik_col_fn
 
 
 def _n_chains(wrapper) -> int:

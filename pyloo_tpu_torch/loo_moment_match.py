@@ -18,11 +18,13 @@ Two model interfaces, as in the reference:
   ``log_prob_upars_fn``, ``log_lik_i_upars_fn``) with the reference
   signatures, through the host loop.
 
-With ``rcParams["device.auto_shard"]`` and more than one CUDA device, each
-tail-length group's lanes (its bad observations) are split over every device
-of :func:`pyloo_tpu_torch.parallel.obs_mesh`, as ``pyloo_tpu`` shards them;
-a group is padded to a multiple of the mesh size with lanes that replay its
-first observation at k = -inf, which never run.
+With ``rcParams["device.auto_shard"]`` and more than one CUDA device, the
+lanes (the bad observations) are split over every device of
+:func:`pyloo_tpu_torch.parallel.obs_mesh`, as ``pyloo_tpu`` shards them,
+padded to a multiple of the mesh size with lanes that replay the first
+observation at k = -inf, which never run.  ``pyloo_tpu`` runs a batch for
+each PSIS tail length; the port runs every lane in one batch, each with its
+own tail length (equal to rounding).
 """
 
 from __future__ import annotations
@@ -47,15 +49,17 @@ from .helpers import (
     ShiftResult,
     UpdateQuantitiesResult,
     _n_chains,
+    _wrapper_model_fns,
     log_prob_upars,
 )
-from .models.wrapper import JAXModelWrapper, map_draws
+from .models.wrapper import JAXModelWrapper
 from .ops import psislw_batch, tail_length
 from .ops.ess import ess_mean
-from .ops.moment_match import _Lanes, _transform, run_lanes
+from .ops.moment_match import KINDS, _Lanes, _transform, run_lanes
 from .parallel.sharding import default_mesh, device_scope
+from .profiling import count, span
 from .rcparams import rcParams
-from .split_moment_match import loo_moment_match_split
+from .split_moment_match import loo_moment_match_split, split_lanes
 from .utils import _logsumexp
 
 _log = logging.getLogger(__name__)
@@ -100,8 +104,8 @@ def loo_moment_match(
         Include the full-covariance (Cholesky) transform.
     device_batched : bool, optional
         Run the greedy loop for ALL bad observations at once on the device
-        (:mod:`pyloo_tpu_torch.ops.moment_match`, one group a PSIS tail
-        length) instead of a host loop with per-transform device
+        (:mod:`pyloo_tpu_torch.ops.moment_match`, each with its own PSIS
+        tail length) instead of a host loop with per-transform device
         round-trips.  Default: automatically enabled on the wrapper + PSIS +
         non-verbose path; the five-callable interface always uses the host
         loop (the callbacks are arbitrary Python).
@@ -111,290 +115,259 @@ def loo_moment_match(
     ELPDData
         Copy with updated ``loo_i``, ``pareto_k``, and totals.  On the
         device-batched path its ``moment_match_passes`` attribute (not a
-        row) counts the passes the batched loops ran, over all groups.
+        row) counts the passes the batched loop ran.  Its
+        ``moment_match_accepted`` attribute, on both paths, is each
+        observation's count of accepted transforms (a flat int64 array; -1
+        where the observation's k did not call for matching).
 
     Runs on ``rcParams["device.device"]``; with ``"cuda"`` and no CUDA device
     this raises.
     """
-    compute_device()
-    _log.setLevel(logging.INFO if verbose else logging.WARNING)
-    loo_data = deepcopy(loo_data)
+    with span("pyloo.moment_match"):
+        compute_device()
+        _log.setLevel(logging.INFO if verbose else logging.WARNING)
+        loo_data = deepcopy(loo_data)
 
-    if hasattr(loo_data, "loo_i") and not hasattr(loo_data, "p_loo_i"):
-        loo_data.p_loo_i = DataArray(
-            np.zeros_like(loo_data.loo_i.values),
-            loo_data.loo_i.dims,
-            dict(loo_data.loo_i.coords),
-        )
-
-    is_wrapper = isinstance(model, JAXModelWrapper)
-    if device_batched and not is_wrapper:
-        raise ValueError(
-            "device_batched=True requires a JAXModelWrapper model; the"
-            " five-callable interface runs on the host loop."
-        )
-    converter = None
-    if is_wrapper:
-        converter = ParameterConverter(model)
-        upars = model.get_unconstrained_parameters()
-        S = upars.shape[0]
-        orig_log_prob = log_prob_upars(model, upars)
-    else:
-        required = {
-            "post_draws": post_draws,
-            "log_lik_i": log_lik_i,
-            "unconstrain_pars": unconstrain_pars,
-            "log_prob_upars_fn": log_prob_upars_fn,
-            "log_lik_i_upars_fn": log_lik_i_upars_fn,
-        }
-        missing = [name for name, fn in required.items() if fn is None]
-        if missing:
-            raise ValueError(
-                "When not using JAXModelWrapper, you must provide all the"
-                f" following functions: {', '.join(required)}. Missing:"
-                f" {', '.join(missing)}"
+        if hasattr(loo_data, "loo_i") and not hasattr(loo_data, "p_loo_i"):
+            loo_data.p_loo_i = DataArray(
+                np.zeros_like(loo_data.loo_i.values),
+                loo_data.loo_i.dims,
+                dict(loo_data.loo_i.coords),
             )
-        _validate_custom_function(post_draws, ["model"], "post_draws")
-        _validate_custom_function(log_lik_i, ["model", "i"], "log_lik_i")
-        _validate_custom_function(
-            unconstrain_pars, ["model", "pars"], "unconstrain_pars"
-        )
-        _validate_custom_function(
-            log_prob_upars_fn, ["model", "upars"], "log_prob_upars_fn"
-        )
-        _validate_custom_function(
-            log_lik_i_upars_fn, ["model", "upars", "i"], "log_lik_i_upars_fn"
-        )
-        try:
-            pars = post_draws(model, **kwargs)
-            upars = unconstrain_pars(model, pars=pars, **kwargs)
-            upars = _validate_output(upars, "upars", expected_ndim=2)
-        except Exception as e:
+
+        is_wrapper = isinstance(model, JAXModelWrapper)
+        if device_batched and not is_wrapper:
             raise ValueError(
-                f"Error getting unconstrained parameters: {e}. Make sure your "
-                "post_draws and unconstrain_pars functions are implemented"
-                " correctly."
-            ) from e
-        S = upars.shape[0]
-        try:
-            orig_log_prob = log_prob_upars_fn(model, upars=upars, **kwargs)
-            orig_log_prob = _validate_output(
-                orig_log_prob, "orig_log_prob", expected_ndim=1
+                "device_batched=True requires a JAXModelWrapper model; the"
+                " five-callable interface runs on the host loop."
             )
-        except Exception as e:
+        converter = None
+        if is_wrapper:
+            converter = ParameterConverter(model)
+            upars = model.get_unconstrained_parameters()
+            S = upars.shape[0]
+            count("mm_evals", "original", S)
+            orig_log_prob = log_prob_upars(model, upars)
+        else:
+            required = {
+                "post_draws": post_draws,
+                "log_lik_i": log_lik_i,
+                "unconstrain_pars": unconstrain_pars,
+                "log_prob_upars_fn": log_prob_upars_fn,
+                "log_lik_i_upars_fn": log_lik_i_upars_fn,
+            }
+            missing = [name for name, fn in required.items() if fn is None]
+            if missing:
+                raise ValueError(
+                    "When not using JAXModelWrapper, you must provide all the"
+                    f" following functions: {', '.join(required)}. Missing:"
+                    f" {', '.join(missing)}"
+                )
+            _validate_custom_function(post_draws, ["model"], "post_draws")
+            _validate_custom_function(log_lik_i, ["model", "i"], "log_lik_i")
+            _validate_custom_function(
+                unconstrain_pars, ["model", "pars"], "unconstrain_pars"
+            )
+            _validate_custom_function(
+                log_prob_upars_fn, ["model", "upars"], "log_prob_upars_fn"
+            )
+            _validate_custom_function(
+                log_lik_i_upars_fn, ["model", "upars", "i"], "log_lik_i_upars_fn"
+            )
+            try:
+                pars = post_draws(model, **kwargs)
+                upars = unconstrain_pars(model, pars=pars, **kwargs)
+                upars = _validate_output(upars, "upars", expected_ndim=2)
+            except Exception as e:
+                raise ValueError(
+                    f"Error getting unconstrained parameters: {e}. Make sure your "
+                    "post_draws and unconstrain_pars functions are implemented"
+                    " correctly."
+                ) from e
+            S = upars.shape[0]
+            try:
+                orig_log_prob = log_prob_upars_fn(model, upars=upars, **kwargs)
+                orig_log_prob = _validate_output(
+                    orig_log_prob, "orig_log_prob", expected_ndim=1
+                )
+            except Exception as e:
+                raise ValueError(
+                    f"Error computing log probabilities: {e}. Make sure your "
+                    "log_prob_upars_fn function is implemented correctly."
+                ) from e
+
+        if k_threshold is None:
+            k_threshold = min(1 - 1 / np.log10(S), 0.7)
+
+        if hasattr(loo_data, "pareto_k"):
+            ks = np.asarray(
+                loo_data.pareto_k.values
+                if hasattr(loo_data.pareto_k, "values")
+                else loo_data.pareto_k
+            )
+        else:
             raise ValueError(
-                f"Error computing log probabilities: {e}. Make sure your "
-                "log_prob_upars_fn function is implemented correctly."
-            ) from e
+                "Moment matching requires pointwise LOO results with Pareto k values. "
+                "Please recompute LOO with pointwise=True before using"
+                " moment_match=True."
+            )
 
-    if k_threshold is None:
-        k_threshold = min(1 - 1 / np.log10(S), 0.7)
+        bad_obs = np.where(ks > k_threshold)[0]
+        _log.info(f"Found {len(bad_obs)} observations with Pareto k > {k_threshold}")
+        kfs = np.zeros_like(ks, dtype=float)
+        original_ks = ks.copy()
+        # each observation's accepted transforms; -1 where it was not matched
+        loo_data.moment_match_accepted = np.full(ks.size, -1, dtype=np.int64)
 
-    if hasattr(loo_data, "pareto_k"):
-        ks = np.asarray(
-            loo_data.pareto_k.values
-            if hasattr(loo_data.pareto_k, "values")
-            else loo_data.pareto_k
-        )
-    else:
-        raise ValueError(
-            "Moment matching requires pointwise LOO results with Pareto k values. "
-            "Please recompute LOO with pointwise=True before using"
-            " moment_match=True."
-        )
+        try:
+            method_enum = method if isinstance(method, ISMethod) else ISMethod(
+                str(method).lower()
+            )
+        except ValueError:
+            method_enum = None
+        if device_batched is None:
+            device_batched = (
+                is_wrapper and method_enum == ISMethod.PSIS and not verbose
+            )
+        if device_batched and method_enum == ISMethod.PSIS and len(bad_obs) > 0:
+            _moment_match_wrapper_batched(
+                model, loo_data, upars, orig_log_prob, bad_obs, kfs, ks,
+                k_threshold=k_threshold, max_iters=max_iters, split=split,
+                cov=cov, verbose=verbose,
+            )
+            summary(loo_data, original_ks, k_threshold, verbose=verbose)
+            return loo_data
 
-    bad_obs = np.where(ks > k_threshold)[0]
-    _log.info(f"Found {len(bad_obs)} observations with Pareto k > {k_threshold}")
-    kfs = np.zeros_like(ks, dtype=float)
-    original_ks = ks.copy()
+        for i in bad_obs:
+            uparsi = upars.copy()
+            ki = ks[i]
+            kfi = 0.0
 
-    try:
-        method_enum = method if isinstance(method, ISMethod) else ISMethod(
-            str(method).lower()
-        )
-    except ValueError:
-        method_enum = None
-    if device_batched is None:
-        device_batched = (
-            is_wrapper and method_enum == ISMethod.PSIS and not verbose
-        )
-    if device_batched and method_enum == ISMethod.PSIS and len(bad_obs) > 0:
-        _moment_match_wrapper_batched(
-            model, loo_data, upars, orig_log_prob, bad_obs, kfs, ks,
-            k_threshold=k_threshold, max_iters=max_iters, split=split,
-            cov=cov, verbose=verbose,
-        )
-        summary(loo_data, original_ks, k_threshold, verbose=verbose)
-        return loo_data
+            log_liki, r_eff_i = _initial_log_lik(
+                model, i, is_wrapper, upars, log_lik_i, verbose, **kwargs
+            )
+            lwi, initial_k = compute_importance_weights(
+                -log_liki, method=method, reff=r_eff_i
+            )
+            lwi = np.asarray(lwi)
 
-    for i in bad_obs:
-        uparsi = upars.copy()
-        ki = ks[i]
-        kfi = 0.0
+            total_shift = np.zeros(upars.shape[1])
+            total_scaling = np.ones(upars.shape[1])
+            total_mapping = np.eye(upars.shape[1])
+            iterind = 1
 
-        log_liki, r_eff_i = _initial_log_lik(
-            model, i, is_wrapper, upars, log_lik_i, verbose, **kwargs
-        )
-        lwi, initial_k = compute_importance_weights(
-            -log_liki, method=method, reff=r_eff_i
-        )
-        lwi = np.asarray(lwi)
+            while iterind <= max_iters and ki > k_threshold:
+                if iterind == max_iters:
+                    warnings.warn(
+                        "Maximum number of moment matching iterations reached. "
+                        "Increasing max_iters may improve accuracy.",
+                        stacklevel=2,
+                    )
+                improved = False
 
-        total_shift = np.zeros(upars.shape[1])
-        total_scaling = np.ones(upars.shape[1])
-        total_mapping = np.eye(upars.shape[1])
-        iterind = 1
+                transform_fns = [("shift", shift), ("scale", shift_and_scale)]
+                if cov:
+                    transform_fns.append(("cov", shift_and_cov))
 
-        while iterind <= max_iters and ki > k_threshold:
-            if iterind == max_iters:
+                # each transform is computed from the *current* (possibly just
+                # accepted) draws, matching the reference's greedy sequencing
+                for kind, make_trans in transform_fns:
+                    trans = make_trans(uparsi, lwi)
+                    try:
+                        quantities = update_quantities_i(
+                            model,
+                            trans["upars"],
+                            i,
+                            orig_log_prob,
+                            r_eff_i,
+                            converter if is_wrapper else None,
+                            None if is_wrapper else log_prob_upars_fn,
+                            None if is_wrapper else log_lik_i_upars_fn,
+                            method,
+                            verbose=verbose,
+                            **kwargs,
+                        )
+                    except Exception as e:
+                        warnings.warn(
+                            f"Error during {kind} shift for observation {i}: {e}. "
+                            "Skipping this transformation.",
+                            stacklevel=2,
+                        )
+                        continue
+                    if quantities["ki"] < ki:
+                        _log.info(
+                            f"Observation {i}: {kind} transform improved Pareto k from"
+                            f" {ki:.4f} to {quantities['ki']:.4f}"
+                        )
+                        uparsi = trans["upars"]
+                        total_shift = total_shift + trans["shift"]
+                        if "scaling" in trans:
+                            total_scaling = total_scaling * trans["scaling"]
+                        if "mapping" in trans:
+                            total_mapping = trans["mapping"] @ total_mapping
+                        lwi = np.asarray(quantities["lwi"])
+                        ki = quantities["ki"]
+                        kfi = quantities["kfi"]
+                        log_liki = quantities["log_liki"]
+                        iterind += 1
+                        improved = True
+
+                if not improved:
+                    _log.info(
+                        f"Observation {i}: No further improvement after"
+                        f" {iterind - 1} iterations. Final Pareto k = {ki:.4f}"
+                    )
+                    break
+
+            if max_iters == 1:
                 warnings.warn(
-                    "Maximum number of moment matching iterations reached. "
-                    "Increasing max_iters may improve accuracy.",
+                    "Maximum number of moment matching iterations reached with"
+                    " max_iters=1. Increasing max_iters may improve accuracy.",
                     stacklevel=2,
                 )
-            improved = False
 
-            transform_fns = [("shift", shift), ("scale", shift_and_scale)]
-            if cov:
-                transform_fns.append(("cov", shift_and_cov))
-
-            # each transform is computed from the *current* (possibly just
-            # accepted) draws, matching the reference's greedy sequencing
-            for kind, make_trans in transform_fns:
-                trans = make_trans(uparsi, lwi)
+            loo_data.moment_match_accepted[i] = iterind - 1
+            if split and iterind > 1:
                 try:
-                    quantities = update_quantities_i(
+                    split_result = loo_moment_match_split(
                         model,
-                        trans["upars"],
+                        upars,
+                        cov,
+                        total_shift,
+                        total_scaling,
+                        total_mapping,
                         i,
-                        orig_log_prob,
                         r_eff_i,
-                        converter if is_wrapper else None,
-                        None if is_wrapper else log_prob_upars_fn,
-                        None if is_wrapper else log_lik_i_upars_fn,
-                        method,
+                        log_prob_upars_fn=None if is_wrapper else log_prob_upars_fn,
+                        log_lik_i_upars_fn=None if is_wrapper else log_lik_i_upars_fn,
+                        method=method,
                         verbose=verbose,
                         **kwargs,
                     )
+                    log_liki = split_result["log_liki"]
+                    lwi = np.asarray(split_result["lwi"])
+                    r_eff_i = split_result["r_eff_i"]
                 except Exception as e:
                     warnings.warn(
-                        f"Error during {kind} shift for observation {i}: {e}. "
-                        "Skipping this transformation.",
+                        f"Split transformation failed for observation {i}: {e}. "
+                        "Using the last successful transformation instead.",
                         stacklevel=2,
                     )
-                    continue
-                if quantities["ki"] < ki:
-                    _log.info(
-                        f"Observation {i}: {kind} transform improved Pareto k from"
-                        f" {ki:.4f} to {quantities['ki']:.4f}"
-                    )
-                    uparsi = trans["upars"]
-                    total_shift = total_shift + trans["shift"]
-                    if "scaling" in trans:
-                        total_scaling = total_scaling * trans["scaling"]
-                    if "mapping" in trans:
-                        total_mapping = trans["mapping"] @ total_mapping
-                    lwi = np.asarray(quantities["lwi"])
-                    ki = quantities["ki"]
-                    kfi = quantities["kfi"]
-                    log_liki = quantities["log_liki"]
-                    iterind += 1
-                    improved = True
 
-            if not improved:
-                _log.info(
-                    f"Observation {i}: No further improvement after"
-                    f" {iterind - 1} iterations. Final Pareto k = {ki:.4f}"
-                )
-                break
-
-        if max_iters == 1:
-            warnings.warn(
-                "Maximum number of moment matching iterations reached with"
-                " max_iters=1. Increasing max_iters may improve accuracy.",
-                stacklevel=2,
+            new_elpd_i = float(_logsumexp(np.asarray(log_liki) + lwi))
+            update_loo_data_i(
+                loo_data, int(i), new_elpd_i, float(ki), float(kfi), kfs,
+                log_liki=np.asarray(log_liki), verbose=verbose,
             )
 
-        if split and iterind > 1:
-            try:
-                split_result = loo_moment_match_split(
-                    model,
-                    upars,
-                    cov,
-                    total_shift,
-                    total_scaling,
-                    total_mapping,
-                    i,
-                    r_eff_i,
-                    log_prob_upars_fn=None if is_wrapper else log_prob_upars_fn,
-                    log_lik_i_upars_fn=None if is_wrapper else log_lik_i_upars_fn,
-                    method=method,
-                    verbose=verbose,
-                    **kwargs,
-                )
-                log_liki = split_result["log_liki"]
-                lwi = np.asarray(split_result["lwi"])
-                r_eff_i = split_result["r_eff_i"]
-            except Exception as e:
-                warnings.warn(
-                    f"Split transformation failed for observation {i}: {e}. "
-                    "Using the last successful transformation instead.",
-                    stacklevel=2,
-                )
-
-        new_elpd_i = float(_logsumexp(np.asarray(log_liki) + lwi))
-        update_loo_data_i(
-            loo_data, int(i), new_elpd_i, float(ki), float(kfi), kfs,
-            log_liki=np.asarray(log_liki), verbose=verbose,
-        )
-
-    summary(loo_data, original_ks, k_threshold, verbose=verbose)
-    return loo_data
+        summary(loo_data, original_ks, k_threshold, verbose=verbose)
+        return loo_data
 
 
-def _wrapper_model_fns(model):
-    """The batched loop's model callables for a wrapper's :class:`Model`.
-
-    ``log_prob_fn``: ``(n, S, P) -> (n, S)`` log joint density, vmapped in
-    draw chunks within the evaluation budget of
-    :func:`pyloo_tpu_torch.models.wrapper.map_draws`.
-
-    ``log_lik_col_fn``: ``((n, S, P), obs_idx) -> (n, S)``, each lane's
-    observation's log likelihood at its draws.  A model with static
-    parameter shapes (no ``builder``) is evaluated on the observation's own
-    rows of ``obs_keys`` with the same function, so a call holds ``n x S``
-    values and not ``n x S x n_obs`` (10 GB at 64 x 4,000 x 5,000): its
-    ``log_lik`` is pointwise, entry i reading row i of the observation
-    arrays, as held-out scoring already assumes (``log_likelihood_i``).  A
-    model with a ``builder`` (parameters that track the observations) is
-    evaluated on its full vector, a lane at a time, and indexed.
-    """
-    obs_keys = model.obs_keys
-
-    def log_prob_fn(u):
-        n, S, P = u.shape
-        return map_draws(model.logp_flat, u.reshape(n * S, P), model.n_obs).reshape(n, S)
-
-    def log_lik_col_fn(u, obs_idx):
-        data = model.tensor_data(u.device, u.dtype)
-        if model.builder is not None:
-            return torch.stack([
-                torch.index_select(
-                    map_draws(model.log_lik_flat, u[j], model.n_obs), 1, obs_idx[j : j + 1]
-                )[:, 0]
-                for j in range(u.shape[0])
-            ])
-        static = {k: v for k, v in data.items() if k not in obs_keys}
-        rows = {k: data[k][obs_idx][:, None] for k in obs_keys}  # (n, 1, ...)
-
-        def one(q, own):
-            return model.log_lik(model.unravel(q), {**static, **own})[0]
-
-        return torch.func.vmap(torch.func.vmap(one, in_dims=(0, None)), in_dims=(0, 0))(
-            u, rows
-        )
-
-    return log_prob_fn, log_lik_col_fn
+# Device memory for one copy of a block of lanes' draws, (lanes, S, P): the
+# greedy loop holds a few such copies, so a call with many flagged rows runs
+# them in blocks, each within this budget (64 lanes at S = 4,000, P = 517).
+_LANE_BLOCK_BYTES = 1 << 30
 
 
 def _moment_match_wrapper_batched(
@@ -403,13 +376,25 @@ def _moment_match_wrapper_batched(
 ):
     """Device-resident moment matching for every bad observation at once.
 
-    Groups the bad observations by their integer PSIS tail length and runs
-    one batched greedy loop per group
-    (:func:`pyloo_tpu_torch.ops.moment_match.batched_moment_match`):
-    transforms as batched (n_bad, S, P) linear algebra, PSIS re-fits through
-    the batched smoother, and the greedy control flow as an ``active`` mask
-    over the lanes.  The host loop above remains the path for custom
-    callables / SIS / TIS.
+    The bad observations run as lanes of one batched greedy loop, each with
+    its own integer PSIS tail length
+    (:func:`pyloo_tpu_torch.ops.moment_match.run_lanes`), in blocks of lanes
+    within ``_LANE_BLOCK_BYTES``: transforms as batched (lanes, S, P) linear
+    algebra, PSIS re-fits through the batched smoother, and the greedy
+    control flow as an ``active`` mask over the lanes.  The split transform
+    of a block's lanes runs on the device too
+    (:func:`pyloo_tpu_torch.split_moment_match.split_lanes`), and the block's
+    results come back in one read each.  The host loop above remains the
+    path for custom callables / SIS / TIS.
+
+    Under a profiler: the spans ``pyloo.moment_match.lanes`` (the bad
+    observations' log-lik, r_eff and tail lengths), ``.pass`` (one a pass of
+    a block's loop), ``.split`` (one a block, carrying its first lane ``i``)
+    and ``.update``; the counters ``mm_lanes``, ``mm_passes``,
+    ``mm_lane_passes``, ``mm_accepted`` (by ``shift``, ``scale``,
+    ``cov``), ``mm_cov_failures`` (lanes whose covariance map fell back to
+    the identity), ``mm_split_lanes``, ``mm_evals`` (draws whose log density
+    was evaluated) and ``host_reads`` under ``moment_match.*``.
     """
     device = compute_device()
     upars = np.asarray(upars, dtype=np.float64)
@@ -417,81 +402,59 @@ def _moment_match_wrapper_batched(
     upars_dev = torch.tensor(upars, device=device)
     log_prob_fn, log_lik_col_fn = _wrapper_model_fns(model.model)
 
-    # each bad observation's log-lik at the original draws, on its own rows
-    bad = [int(i) for i in bad_obs]
-    ll_bad = log_lik_col_fn(
-        upars_dev.expand(len(bad), S, P), torch.as_tensor(bad, device=device)
-    )  # (n_bad, S)
-    ll_bad_host = ll_bad.cpu().numpy()
+    with span("pyloo.moment_match.lanes"):
+        # each bad observation's log-lik at the original draws, on its own rows
+        bad = [int(i) for i in bad_obs]
+        count("mm_lanes", "batched", len(bad))
+        ll_bad = log_lik_col_fn(
+            upars_dev.expand(len(bad), S, P), torch.as_tensor(bad, device=device)
+        )  # (n_bad, S)
+        count("host_reads", "moment_match.lanes")
+        ll_bad_host = ll_bad.cpu().numpy()
 
-    # r_eff per bad observation, exactly as the host loop computes it
-    n_chains = _n_chains(model)
-    r_effs = {}
-    for j, i in enumerate(bad):
-        if n_chains == 1:
-            r_effs[i] = 1.0
-        else:
-            col = ll_bad_host[j]
-            r_effs[i] = float(np.asarray(ess_mean(col.reshape(n_chains, -1))) / S)
+        # r_eff per bad observation, exactly as the host loop computes it
+        n_chains = _n_chains(model)
+        r_effs = {}
+        for j, i in enumerate(bad):
+            if n_chains == 1:
+                r_effs[i] = 1.0
+            else:
+                col = ll_bad_host[j]
+                r_effs[i] = float(np.asarray(ess_mean(col.reshape(n_chains, -1))) / S)
 
-    # group by tail length: each group shares one PSIS tail budget
-    groups: dict[int, list[int]] = {}
-    for j, i in enumerate(bad):
-        groups.setdefault(tail_length(S, r_effs[i]), []).append(j)
+        # each lane's own PSIS tail budget: lanes of every budget share a batch
+        tails = [tail_length(S, r_effs[i]) for i in bad]
 
     orig_lp = torch.tensor(np.asarray(orig_log_prob), dtype=torch.float64)
-    # the lanes of a group are split over the mesh: every lane's greedy loop
-    # is independent, so different observations run on different devices
+    # the lanes are split over the mesh: every lane's greedy loop is
+    # independent, so different observations run on different devices
     mesh = default_mesh(device) if rcParams["device.auto_shard"] else None
     devices = mesh.devices if mesh is not None else (device,)
     on = {str(d): (upars_dev.to(d), orig_lp.to(d)) for d in devices}
+    tail_max = max(tails)
+    block = max(len(devices), _LANE_BLOCK_BYTES // (S * P * upars_dev.element_size()))
     passes = 0
-    for m_tail, rows in groups.items():
-        n_g = len(rows)
-        pad = (-n_g) % len(devices)
-        # padding lanes replay the group's first observation but start with
-        # k at -inf, so their loop condition is false from the start
-        rows_p = rows + [rows[0]] * pad
-        idxs = [bad[j] for j in rows_p]
-        log_liki0 = ll_bad[rows_p]
-        lwi0, _ki_recomputed = psislw_batch(-log_liki0, m_tail)
-        # host-loop parity: the greedy baseline k is the STORED pareto_k
-        # from loo_data (reference loo_moment_match.py:389 ``ki = ks[i]``),
-        # not the value recomputed from the initial weights
-        ki0_np = np.asarray(ks, dtype=np.float64).flat[idxs].copy()
-        ki0_np[n_g:] = -np.inf
-        ki0 = torch.as_tensor(ki0_np, device=device)
-        obs_idx = torch.as_tensor(idxs, device=device)
-        per = len(rows_p) // len(devices)
-        lanes = []
-        for j, d in enumerate(devices):
-            lane = slice(j * per, (j + 1) * per)
-            upars_d, orig_lp_d = on[str(d)]
-            with device_scope(d):
-                lanes.append(_Lanes(
-                    upars_d, obs_idx[lane].to(d), orig_lp_d, log_liki0[lane].to(d),
-                    lwi0[lane].to(d), ki0[lane].to(d), float(k_threshold),
-                    log_prob_fn=log_prob_fn, log_lik_col_fn=log_lik_col_fn,
-                    tail_max=m_tail, max_iters=max_iters, use_cov=cov,
-                ))
-        passes += run_lanes(lanes)
-        parts = [lane.result() for lane in lanes]
-        out = {k: torch.cat([p[k].cpu() for p in parts])[:n_g].numpy() for k in parts[0]}
-        idxs = idxs[:n_g]
+    for start in range(0, len(bad), block):
+        rows = list(range(start, min(start + block, len(bad))))
+        n_b = len(rows)
+        # the block's device state ends with the call: the peak is one block's
+        block_passes, out = _match_block(
+            rows, bad, tails, tail_max, ll_bad, ks, devices, on, log_prob_fn, log_lik_col_fn,
+            k_threshold=k_threshold, max_iters=max_iters, split=split, cov=cov)
+        passes += block_passes
+        idxs = [bad[j] for j in rows]
+        for kind, n_kind in zip(KINDS, out["accepted_by_kind"].sum(axis=0).tolist()):
+            count("mm_accepted", kind, n_kind)
+        count("mm_cov_failures", "batched", int(out["cov_failed"].sum()))
+        if split:
+            count("mm_split_lanes", "batched", int(np.sum(out["n_accepted"] > 0)))
         _log.info(
-            f"Batched moment matching: group tail={m_tail} covered"
-            f" {len(idxs)} observations,"
+            f"Batched moment matching covered {n_b} observations,"
             f" {int(np.sum(out['n_accepted'] > 0))} improved"
         )
 
         for j, i in enumerate(idxs):
-            ki = float(out["ki"][j])
-            kfi = float(out["kfi"][j])
-            lwi = out["lwi"][j]
-            log_liki = out["log_liki"][j]
-            r_eff_i = r_effs[i]
-            n_accepted = int(out["n_accepted"][j])
-
+            loo_data.moment_match_accepted[i] = int(out["n_accepted"][j])
             if bool(out["reached_max"][j]):
                 warnings.warn(
                     "Maximum number of moment matching iterations reached. "
@@ -504,37 +467,87 @@ def _moment_match_wrapper_batched(
                     " max_iters=1. Increasing max_iters may improve accuracy.",
                     stacklevel=2,
                 )
-
-            if split and n_accepted > 0:
-                try:
-                    split_result = loo_moment_match_split(
-                        model,
-                        upars,
-                        cov,
-                        out["total_shift"][j],
-                        out["total_scaling"][j],
-                        out["total_mapping"][j],
-                        i,
-                        r_eff_i,
-                        method=ISMethod.PSIS,
-                        verbose=verbose,
-                    )
-                    log_liki = np.asarray(split_result["log_liki"])
-                    lwi = np.asarray(split_result["lwi"])
-                    r_eff_i = split_result["r_eff_i"]
-                except Exception as e:
-                    warnings.warn(
-                        f"Split transformation failed for observation {i}: {e}. "
-                        "Using the last successful transformation instead.",
-                        stacklevel=2,
-                    )
-
-            new_elpd_i = float(_logsumexp(np.asarray(log_liki) + lwi))
-            update_loo_data_i(
-                loo_data, int(i), new_elpd_i, ki, kfi, kfs,
-                log_liki=np.asarray(log_liki), verbose=verbose,
-            )
+            if split and bool(out["split_failed"][j]):
+                warnings.warn(
+                    f"Split transformation failed for observation {i}: the accumulated"
+                    " map is singular. Using the last successful transformation instead.",
+                    stacklevel=2,
+                )
+            with span("pyloo.moment_match.update"):
+                log_liki = out["log_liki"][j]
+                new_elpd_i = float(_logsumexp(log_liki + out["lwi"][j]))
+                update_loo_data_i(
+                    loo_data, int(i), new_elpd_i, float(out["ki"][j]), float(out["kfi"][j]),
+                    kfs, log_liki=log_liki, verbose=verbose,
+                )
     loo_data.moment_match_passes = passes
+
+
+def _match_block(rows, bad, tails, tail_max, ll_bad, ks, devices, on, log_prob_fn,
+                 log_lik_col_fn, *, k_threshold, max_iters, split, cov):
+    """The greedy loop, and the split, of the lanes ``rows`` (positions in
+    ``bad``) over the devices: (passes, the lanes' results on the host)."""
+    n_b = len(rows)
+    S, device = ll_bad.shape[1], ll_bad.device
+    # padding lanes replay the block's first observation but start with
+    # k at -inf, so their loop condition is false from the start
+    rows_p = rows + [rows[0]] * ((-n_b) % len(devices))
+    idxs = [bad[j] for j in rows_p]
+    row_tails = torch.as_tensor([tails[j] for j in rows_p], device=device)
+    log_liki0 = ll_bad[rows_p]
+    lwi0, _ki_recomputed = psislw_batch(-log_liki0, tail_max, row_tails)
+    # host-loop parity: the greedy baseline k is the STORED pareto_k
+    # from loo_data (reference loo_moment_match.py:389 ``ki = ks[i]``),
+    # not the value recomputed from the initial weights
+    ki0_np = np.asarray(ks, dtype=np.float64).flat[idxs].copy()
+    ki0_np[n_b:] = -np.inf
+    ki0 = torch.as_tensor(ki0_np, device=device)
+    obs_idx = torch.as_tensor(idxs, device=device)
+    per = len(rows_p) // len(devices)
+    lanes = []
+    for j, d in enumerate(devices):
+        lane = slice(j * per, (j + 1) * per)
+        upars_d, orig_lp_d = on[str(d)]
+        with device_scope(d):
+            lanes.append(_Lanes(
+                upars_d, obs_idx[lane].to(d), orig_lp_d, log_liki0[lane].to(d),
+                lwi0[lane].to(d), ki0[lane].to(d), float(k_threshold),
+                log_prob_fn=log_prob_fn, log_lik_col_fn=log_lik_col_fn,
+                tail_max=tail_max, max_iters=max_iters, use_cov=cov,
+                row_tails=row_tails[lane].to(d),
+            ))
+    passes = run_lanes(lanes)
+    parts = [lane.result() for lane in lanes]
+    if split:
+        with span("pyloo.moment_match.split", i=idxs[0]):
+            count("mm_evals", "split", 2 * S * len(rows_p))
+            for part, lane, d in zip(parts, lanes, devices):
+                with device_scope(d):
+                    _split_part(part, lane, on[str(d)][0], cov, tail_max,
+                                log_prob_fn, log_lik_col_fn)
+    keys = ("ki", "kfi", "lwi", "log_liki", "n_accepted", "reached_max",
+            "accepted_by_kind", "cov_failed") + (("split_failed",) if split else ())
+    count("host_reads", "moment_match.result", len(parts) * len(keys))
+    out = {k: torch.cat([p[k].cpu() for p in parts])[:n_b].numpy() for k in keys}
+    return passes, out
+
+
+def _split_part(part: dict, lanes: _Lanes, upars, cov: bool, tail_max: int, log_prob_fn,
+                log_lik_col_fn) -> None:
+    """Put the split transform's ``log_liki`` and ``lwi`` of the lanes that
+    accepted a transform into ``part`` (a :meth:`_Lanes.result`), on its
+    device, and ``split_failed``: the lanes whose accumulated map is
+    singular, which keep their last transform's, as a lane that accepted
+    none keeps its own (the host loop drops such an observation's split
+    with a warning)."""
+    ll, lw, ok = split_lanes(upars, part["total_shift"], part["total_scaling"],
+                             part["total_mapping"], lanes.obs_idx, lanes.row_tails,
+                             tail_max, log_prob_fn, log_lik_col_fn, use_cov=cov)
+    matched = part["n_accepted"] > 0
+    part["split_failed"] = matched & ~ok
+    take = (matched & ok)[:, None]
+    part["log_liki"] = torch.where(take, ll, part["log_liki"])
+    part["lwi"] = torch.where(take, lw, part["lwi"])
 
 
 def _log_lik_column(wrapper, upars, i: int) -> np.ndarray:

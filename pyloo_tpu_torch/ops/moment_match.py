@@ -21,8 +21,10 @@ Semantics replicate the host loop (``pyloo_tpu_torch.loo_moment_match``):
 * any numerical failure in a candidate simply loses the ``k_new < k``
   comparison (host loop: per-transform ``try/except`` skip).
 
-The tail length is one per call: the caller groups bad observations by
-their integer ``tail_length(S, r_eff_i)``.
+The tail length of :func:`batched_moment_match` is one per call.  A
+:class:`_Lanes` may take each lane's own ``tail_length(S, r_eff_i)``
+(``row_tails``, bounded by ``tail_max``), so lanes of every relative
+efficiency run as one batch.
 """
 
 from __future__ import annotations
@@ -32,8 +34,12 @@ import math
 import torch
 
 from ..parallel.sharding import device_scope
+from ..profiling import count, span
 from .guard import per_row
 from .psis import psislw_batch
+
+# the transforms of a pass, in order: shift, shift and scale, shift and covariance
+KINDS = ("shift", "scale", "cov")
 
 __all__ = [
     "batched_moment_match",
@@ -50,24 +56,27 @@ def split_transform_halves(upars, shift, scaling, mapping, mapping_inv, *, use_c
 
     The accumulated affine map is ``u -> (u - m) * scaling @ mapping.T + m +
     shift`` with ``m`` the draw mean; its inverse uses ``mapping_inv``.
+    ``shift``, ``scaling`` (P) and the maps (P, P) may carry a leading axis
+    of lanes, each lane's map applied to the same ``upars`` (S, P).
 
     Returns ``(half_fwd, half_inv)``: each is ``upars`` with one half
-    replaced by the transformed draws.
+    replaced by the transformed draws, (S, P) or (lanes, S, P).
     """
-    S = upars.shape[0]
+    S = upars.shape[-2]
     half = S // 2
-    mean = torch.mean(upars, dim=0)
+    mean = torch.mean(upars, dim=-2)
     centered = upars - mean[None, :]
-    fwd = centered * scaling[None, :]
+    fwd = centered * scaling[..., None, :]
     if use_cov:
-        fwd = fwd @ mapping.T
-    fwd = fwd + (shift + mean)[None, :]
+        fwd = fwd @ mapping.transpose(-1, -2)
+    fwd = fwd + (shift + mean)[..., None, :]
     inv = centered
     if use_cov:
-        inv = inv @ mapping_inv.T
-    inv = inv / scaling[None, :] + (mean - shift)[None, :]
-    half_fwd = torch.cat([fwd[:half], upars[half:]])
-    half_inv = torch.cat([upars[:half], inv[half:]])
+        inv = inv @ mapping_inv.transpose(-1, -2)
+    inv = inv / scaling[..., None, :] + (mean - shift)[..., None, :]
+    upars = upars.expand(fwd.shape)
+    half_fwd = torch.cat([fwd[..., :half, :], upars[..., half:, :]], dim=-2)
+    half_inv = torch.cat([upars[..., :half, :], inv[..., half:, :]], dim=-2)
     return half_fwd, half_inv
 
 
@@ -158,7 +167,7 @@ class _Lanes:
 
     def __init__(self, upars, obs_idx, orig_log_prob, log_liki0, lwi0, ki0,
                  k_threshold: float, *, log_prob_fn, log_lik_col_fn, tail_max: int,
-                 max_iters: int, use_cov: bool):
+                 max_iters: int, use_cov: bool, row_tails=None):
         n = obs_idx.shape[0]
         S, P = upars.shape
         dtype, device = upars.dtype, upars.device
@@ -173,8 +182,13 @@ class _Lanes:
             "total_mapping": torch.eye(P, dtype=dtype, device=device).expand(n, P, P),
         }
         self.iterind = torch.ones((n,), dtype=torch.int64, device=device)
+        # what the result reports besides: each lane's accepted transforms by
+        # kind, and whether its covariance map ever fell back to the identity
+        self.accepted = torch.zeros((n, len(KINDS)), dtype=torch.int64, device=device)
+        self.cov_failed = torch.zeros((n,), dtype=torch.bool, device=device)
         self.obs_idx, self.orig_log_prob = obs_idx, orig_log_prob
         self.k_threshold, self.max_iters, self.tail_max = k_threshold, max_iters, tail_max
+        self.row_tails = row_tails
         self.log_prob_fn, self.log_lik_col_fn = log_prob_fn, log_lik_col_fn
         self.kinds = (0, 1, 2) if use_cov else (0, 1)
         self.active = (self.iterind <= max_iters) & (self.st["ki"] > k_threshold)
@@ -188,7 +202,8 @@ class _Lanes:
 
         progressing = torch.zeros((n,), dtype=torch.bool, device=active.device)
         for kind in self.kinds:
-            new_upars, shift, scaling, mapping, _ = _transform(st["upars"], st["lwi"], kind)
+            new_upars, shift, scaling, mapping, ok = _transform(st["upars"], st["lwi"], kind)
+            count("mm_evals", "loop", new_upars.shape[0] * new_upars.shape[1])
             log_prob_new = self.log_prob_fn(new_upars)
             log_liki_new = self.log_lik_col_fn(new_upars, self.obs_idx)
             lr = -log_liki_new + log_prob_new - self.orig_log_prob[None, :]
@@ -196,8 +211,8 @@ class _Lanes:
             full_lr = log_prob_new - self.orig_log_prob[None, :]
             full_lr = torch.where(torch.isnan(full_lr), -math.inf, full_lr)
             with per_row():  # a lane's float64 guard is its own, as under jax.vmap
-                lwi_new, ki_new = psislw_batch(lr, self.tail_max)
-                _, kfi_new = psislw_batch(full_lr, self.tail_max)
+                lwi_new, ki_new = psislw_batch(lr, self.tail_max, self.row_tails)
+                _, kfi_new = psislw_batch(full_lr, self.tail_max, self.row_tails)
 
             # NaN candidates lose (host: skip); inactive lanes keep their state
             accept = active & (ki_new < st["ki"])
@@ -216,6 +231,9 @@ class _Lanes:
                 ),
             }
             self.iterind = self.iterind + accept.to(self.iterind.dtype)
+            self.accepted[:, kind] += accept.to(self.accepted.dtype)
+            if KINDS[kind] == "cov":
+                self.cov_failed = self.cov_failed | (active & ~ok)
             progressing = progressing | accept
         self.st = st
         self.active = (active & (self.iterind <= self.max_iters)
@@ -225,22 +243,34 @@ class _Lanes:
         out = {k: v for k, v in self.st.items() if k != "upars"}
         out["n_accepted"] = self.iterind - 1
         out["reached_max"] = self.iterind > self.max_iters
+        out["accepted_by_kind"] = self.accepted
+        out["cov_failed"] = self.cov_failed
         return out
+
+    def active_lanes(self) -> int:
+        """The lanes that go on, read on the host: the loop's one read a pass."""
+        count("host_reads", "moment_match.pass")
+        return int(self.active.sum())
 
 
 def run_lanes(lanes: list) -> int:
     """Run the greedy loops of lane sets on their devices side by side, and
     return the passes run.  A pass is queued on every device whose lanes go
-    on before any is read: one host read a device a pass."""
-    going = [bool(lane.active.any()) for lane in lanes]
+    on before any is read: one host read a device a pass.  Under a profiler
+    each pass is a ``pyloo.moment_match.pass`` span carrying its number
+    ``p``, and ``mm_lane_passes`` counts the lanes each pass works on."""
+    going = [lane.active_lanes() for lane in lanes]
     passes = 0
     while any(going):
-        passes += 1
-        for lane, on in zip(lanes, going):
-            if on:
-                with device_scope(lane.active.device):
-                    lane.step()
-        going = [on and bool(lane.active.any()) for lane, on in zip(lanes, going)]
+        with span("pyloo.moment_match.pass", p=passes):
+            passes += 1
+            count("mm_lane_passes", "loop", sum(going))
+            for lane, on in zip(lanes, going):
+                if on:
+                    with device_scope(lane.active.device):
+                        lane.step()
+            going = [lane.active_lanes() if on else 0 for lane, on in zip(lanes, going)]
+    count("mm_passes", "batched", passes)
     return passes
 
 
@@ -288,10 +318,12 @@ def batched_moment_match(
     -------
     dict with per-observation finals: ``lwi``, ``ki``, ``kfi``,
     ``log_liki``, ``total_shift``, ``total_scaling``, ``total_mapping``,
-    ``n_accepted`` (= iterind - 1), ``reached_max``; and ``passes``, the
-    passes run (an int).
+    ``n_accepted`` (= iterind - 1), ``reached_max``, ``accepted_by_kind``
+    (n_bad, 3: the accepted shifts, scales and covariance maps) and
+    ``cov_failed`` (whether an active lane's covariance map fell back to
+    the identity); and ``passes``, the passes run (an int).
 
-    The loop reads one flag on the host a pass (whether any lane is still
+    The loop reads one count on the host a pass (how many lanes are still
     active): at most ``max_iters + 1`` reads, since an active lane has
     accepted at least one transform in each earlier pass.  In float64 each
     re-fit also reads its lanes' deep-tail flags, once (each lane takes its

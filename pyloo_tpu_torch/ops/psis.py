@@ -274,42 +274,55 @@ def _renorm(v, sh):
     return v, sh
 
 
-def _log_prod_terms(y, b_col):
-    """``sum_j log(1 - b*y_j)`` per row via a renormalized product tree.
+def _log_prod_terms(y, b):
+    """``sum_j log(1 - b*y_j)`` per row and candidate via a renormalized
+    product tree: ``y`` (B, M), ``b`` (B, C) candidates, the result (B, C).
 
     Invalid slots of ``y`` are exactly 0 (factor 1).  Each multiply carries
     <= eps relative error; the closing log turns them into an absolute error
     of ~2M*eps, with no cancellation since every factor is positive.
     Negative factors (infeasible candidates, ``b*y > 1``) end in NaN, as the
     reference's ``log1p`` does.  Odd level widths carry their last column to
-    the next level unmultiplied.
+    the next level unmultiplied.  Every operation is elementwise along the
+    candidates, so a candidate's value is the same bit for bit whichever
+    candidates share its call.
     """
-    t = 1.0 - b_col[:, None] * y
+    t = 1.0 - b[:, :, None] * y[:, None, :]
     sh = torch.zeros(t.shape, dtype=torch.int32, device=t.device)
     t, sh = _renorm(t, sh)
-    while t.shape[1] > 1:
-        h = t.shape[1] // 2
-        tn = t[:, :h] * t[:, h : 2 * h]
-        shn = sh[:, :h] + sh[:, h : 2 * h]
-        if t.shape[1] > 2 * h:
-            tn = torch.cat([tn, t[:, 2 * h :]], dim=1)
-            shn = torch.cat([shn, sh[:, 2 * h :]], dim=1)
+    while t.shape[-1] > 1:
+        h = t.shape[-1] // 2
+        tn = t[..., :h] * t[..., h : 2 * h]
+        shn = sh[..., :h] + sh[..., h : 2 * h]
+        if t.shape[-1] > 2 * h:
+            tn = torch.cat([tn, t[..., 2 * h :]], dim=-1)
+            shn = torch.cat([shn, sh[..., 2 * h :]], dim=-1)
         t, sh = _renorm(tn, shn)
-    return torch.log(t[:, 0]) - sh[:, 0].to(t.dtype) * _LOG_RENORM_SCALE
+    return torch.log(t[..., 0]) - sh[..., 0].to(t.dtype) * _LOG_RENORM_SCALE
+
+
+# The linear fit's candidates evaluated in one product tree: as many as keep
+# a block's (rows, candidates, M) factors within this many bytes, and at
+# least one.  Few rows (moment matching's lanes, a split's one row) take the
+# whole grid at once, ~100 launches in place of ~100 a candidate; a chunk of
+# many rows keeps its one candidate a block, and its memory.
+_CANDIDATE_BLOCK_BYTES = 16 << 20
 
 
 def _linear_b_post(y, nf, b, valid):
     """Posterior-mean b over a candidate set (reference ``psis.py:186-205``).
 
-    ``b`` is (B, C) candidates with validity mask ``valid``; one candidate's
-    profile log-likelihood (:func:`_log_prod_terms`) per loop step.
+    ``b`` is (B, C) candidates with validity mask ``valid``; their profile
+    log-likelihoods (:func:`_log_prod_terms`) in blocks of candidates within
+    ``_CANDIDATE_BLOCK_BYTES``.
     Invalid candidates carry exactly zero weight.
     """
     eps = torch.finfo(y.dtype).eps
     nf_safe = torch.where(nf == 0, 1.0, nf)
-    k_grid = torch.stack(
-        [_log_prod_terms(y, b[:, j]) / nf_safe for j in range(b.shape[1])], dim=1
-    )  # (B, m_max)
+    per = max(1, _CANDIDATE_BLOCK_BYTES // max(1, y.numel() * y.element_size()))
+    k_grid = torch.cat(
+        [_log_prod_terms(y, b[:, j : j + per]) for j in range(0, b.shape[1], per)], dim=1
+    ) / nf_safe[:, None]  # (B, m_max)
 
     len_scale = nf[:, None] * (torch.log(-(b / k_grid)) - k_grid - 1.0)
     len_scale = torch.where(valid, len_scale, -math.inf)
@@ -333,7 +346,7 @@ def _gpdfit_from_y(y, nf, y_quart, y_last):
     b, grid_valid = _candidate_grid_y(y, nf, y_quart, y_last)
     b_post = _linear_b_post(y, nf, b, grid_valid)
     nf_safe = torch.where(nf == 0, 1.0, nf)
-    k_post = _log_prod_terms(y, b_post) / nf_safe
+    k_post = _log_prod_terms(y, b_post[:, None])[:, 0] / nf_safe
     sigma = -k_post / b_post
     k_post = (nf * k_post + _PRIOR_K * 0.5) / (nf + _PRIOR_K)
     return k_post, sigma
@@ -364,7 +377,7 @@ def _linear_fit_close(y, nf, b_post):
     like :func:`_gpdfit_batch`.
     """
     nf_safe = torch.where(nf == 0, 1.0, nf)
-    k_post = _log_prod_terms(y, b_post) / nf_safe
+    k_post = _log_prod_terms(y, b_post[:, None])[:, 0] / nf_safe
     sign_sigma = torch.sign(-k_post / b_post)
     log_sigma = torch.log(torch.abs(k_post)) - torch.log(torch.abs(b_post))
     k_post = (nf * k_post + _PRIOR_K * 0.5) / (nf + _PRIOR_K)
@@ -547,15 +560,17 @@ def _smoothed_tail_desc(tail_vals, xcutoff, tail_max: int):
     return smoothed_desc, slot_valid, n_tail, k, smooth_ok
 
 
-def _select_tail(x, tail_max: int):
+def _select_tail(x, tail_max: int, row_tails=None):
     """Top ``tail_max`` of the shifted rows, their indices and the cutoff
-    (the ``tail_max + 1``-th largest, floored at log(float64 tiny))."""
+    (the ``tail_max + 1``-th largest, or with ``row_tails`` each row's
+    ``row_tails + 1``-th largest, floored at log(float64 tiny))."""
     vals, idx = topk_with_idx(x, tail_max + 1)  # descending, (B, M+1)
-    xcutoff = torch.clamp_min(vals[:, tail_max], _CUTOFF_FLOOR)
+    cut = vals[:, tail_max] if row_tails is None else _gather_col(vals, row_tails)
+    xcutoff = torch.clamp_min(cut, _CUTOFF_FLOOR)
     return vals, idx[:, :tail_max], xcutoff
 
 
-def psislw_batch(log_weights, tail_max: int):
+def psislw_batch(log_weights, tail_max: int, row_tails=None):
     """Pareto-smooth a batch of log-weight rows.
 
     Parameters
@@ -564,6 +579,14 @@ def psislw_batch(log_weights, tail_max: int):
         Raw log importance weights, one row per observation; not written to.
     tail_max : int
         Tail budget M (from :func:`tail_length`).
+    row_tails : (B,) int64 tensor, optional
+        Each row's own tail budget, at most ``tail_max`` (rows of several
+        relative efficiencies in one batch, as moment matching's lanes).
+        A row's tail is then the values strictly above its own cutoff, which
+        lie in the first ``row_tails`` slots of the top ``tail_max``; the
+        slots after them take no part, as in a batch of that budget alone,
+        but the fit's sums run over the wider slots, so the result agrees
+        with such a batch to rounding, not bit for bit.
 
     Returns
     -------
@@ -573,7 +596,7 @@ def psislw_batch(log_weights, tail_max: int):
         Pareto shape diagnostic; ``inf`` where the tail had <= 4 exceedances.
     """
     x = log_weights - log_weights.amax(dim=1, keepdim=True)  # a tensor of its own
-    vals, tail_idx, xcutoff = _select_tail(x, tail_max)
+    vals, tail_idx, xcutoff = _select_tail(x, tail_max, row_tails)
     tail_vals = vals[:, :tail_max]
     smoothed_desc, slot_valid, n_tail, k, smooth_ok = _smoothed_tail_desc(
         tail_vals, xcutoff, tail_max

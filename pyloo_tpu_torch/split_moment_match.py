@@ -8,8 +8,13 @@ full-posterior weights are re-smoothed.
 
 The transform algebra and the mixture denominator are the device functions
 :func:`pyloo_tpu_torch.ops.moment_match.split_transform_halves` and
-:func:`pyloo_tpu_torch.ops.moment_match.split_mixture_log_weights`.  Only the
-model callbacks and the tiny P x P inverse and determinant stay on the host.
+:func:`pyloo_tpu_torch.ops.moment_match.split_mixture_log_weights`; the
+map's inverse and determinant are computed on the device too.  With a
+:class:`~pyloo_tpu_torch.models.JAXModelWrapper` the halves are evaluated
+there by the batched loop's model callables, and only the observation's
+log-likelihood and the weights come back; the five callables are evaluated
+on host copies of the halves.  :func:`split_lanes` is the transform of a
+block of the batched loop's lanes, all on the device.
 """
 
 from __future__ import annotations
@@ -21,40 +26,84 @@ import torch
 
 from ._common import compute_device
 from .base import ISMethod, compute_importance_weights
-from .helpers import (
-    _initialize_array,
-    compute_updated_r_eff,
-    extract_log_likelihood_for_observation,
-    log_lik_i_upars,
-    log_prob_upars,
-)
+from .helpers import _initialize_array, _wrapper_model_fns, compute_updated_r_eff
 from .models.wrapper import JAXModelWrapper
+from .ops.guard import per_row
 from .ops.moment_match import split_mixture_log_weights, split_transform_halves
+from .ops.psis import psislw_batch
+from .profiling import count
 
-__all__ = ["loo_moment_match_split"]
+__all__ = ["loo_moment_match_split", "split_lanes"]
 
 
-def _eval_halves(model, fwd, inv, i, log_prob_fn, log_lik_fn, kwargs):
-    """Evaluate log p(draws) on both half-transformed matrices and the
-    pointwise log-lik of observation ``i`` on the forward one, through
-    whichever model interface is in play (wrapper or user callables)."""
-    if isinstance(model, JAXModelWrapper):
-        lp_fwd = log_prob_upars(model, fwd)
-        lp_inv = log_prob_upars(model, inv)
-        ll = log_lik_i_upars(model, fwd, pointwise=True)
-        ll_i = extract_log_likelihood_for_observation(ll, i)
-        return lp_fwd, lp_inv, ll_i
+def _read(t: torch.Tensor) -> np.ndarray:
+    """``t`` on the host, counted as a ``moment_match.split`` read."""
+    count("host_reads", "moment_match.split")
+    return t.cpu().numpy()
+
+
+def _split_ratios(upars, shift, scaling, mapping, obs_idx, log_prob_fn, log_lik_col_fn, *,
+                  use_cov: bool):
+    """(log-lik, raw mixture log-weights), each (lanes, S), and whether each
+    lane's map is invertible (lanes,), of the split transform of lanes with
+    maps ``shift`` (lanes, P), ``scaling`` (lanes, P), ``mapping`` (lanes,
+    P, P) of the draws ``upars`` (S, P); the lanes' observations
+    ``obs_idx``, evaluated by the batched loop's model callables
+    (:func:`pyloo_tpu_torch.helpers._wrapper_model_fns`).  A lane whose map
+    is singular is transformed by the identity in its place, and its
+    values are not to be used."""
+    ok = torch.ones(mapping.shape[:-2], dtype=torch.bool, device=mapping.device)
+    mapping_inv = mapping
+    if use_cov:
+        mapping_inv, info = torch.linalg.inv_ex(mapping)
+        ok = info == 0
+        eye = torch.eye(mapping.shape[-1], dtype=mapping.dtype, device=mapping.device)
+        mapping = torch.where(ok[:, None, None], mapping, eye)
+        mapping_inv = torch.where(ok[:, None, None], mapping_inv, eye)
+    fwd, inv = split_transform_halves(upars, shift, scaling, mapping, mapping_inv,
+                                      use_cov=use_cov)
+    ll = log_lik_col_fn(fwd, obs_idx)
+    # inverse-map Jacobian: log|d inv / d u| = -sum log scaling - log|det M|
+    log_jac = torch.sum(torch.log(scaling), dim=-1) + torch.linalg.slogdet(mapping)[1]
+    lr = split_mixture_log_weights(ll, log_prob_fn(fwd), log_prob_fn(inv) - log_jac[:, None])
+    return ll, lr, ok
+
+
+def split_lanes(upars, shift, scaling, mapping, obs_idx, row_tails, tail_max: int,
+                log_prob_fn, log_lik_col_fn, *, use_cov: bool):
+    """(log-lik, smoothed log-weights), each (lanes, S), and whether each
+    lane's map is invertible (lanes,), of the split transform of a block of
+    moment matching's lanes, on their device: each lane's mixture weights
+    Pareto-smoothed with its own tail length ``row_tails`` (at most
+    ``tail_max``), each lane deciding its own deep-tail guard.  The values
+    of a lane whose map is singular are not to be used."""
+    ll, lr, ok = _split_ratios(upars, shift, scaling, mapping, obs_idx, log_prob_fn,
+                               log_lik_col_fn, use_cov=use_cov)
+    with per_row():
+        lw, _ = psislw_batch(lr, tail_max, row_tails)
+    return ll, lw, ok
+
+
+def _callable_fns(model, i, log_prob_fn, log_lik_fn, kwargs):
+    """The user callables as the batched loop's model callables of one lane:
+    each evaluates a host copy of the lane's draws."""
     if log_prob_fn is None or log_lik_fn is None:
         raise ValueError(
             "When not using JAXModelWrapper, you must provide the following"
             " functions: log_prob_upars_fn and log_lik_i_upars_fn"
         )
-    lp_fwd = log_prob_fn(model, upars=fwd, **kwargs)
-    lp_inv = log_prob_fn(model, upars=inv, **kwargs)
-    ll_i = log_lik_fn(model, upars=fwd, i=i, **kwargs)
-    if hasattr(ll_i, "flatten"):
-        ll_i = ll_i.flatten()
-    return lp_fwd, lp_inv, ll_i
+    device = compute_device()
+
+    def lane(values):
+        return torch.tensor(np.asarray(values, dtype=np.float64).ravel(), device=device)[None]
+
+    def lp(u):
+        return lane(log_prob_fn(model, upars=_read(u[0]), **kwargs))
+
+    def ll(u, _obs_idx):
+        return lane(log_lik_fn(model, upars=_read(u[0]), i=i, **kwargs))
+
+    return lp, ll
 
 
 def loo_moment_match_split(
@@ -91,38 +140,18 @@ def loo_moment_match_split(
     def dev(a):
         return torch.tensor(np.asarray(a), dtype=torch.float64, device=device)
 
-    mapping_inv = np.linalg.inv(total_mapping) if cov else np.eye(dim)
-    half_fwd, half_inv = split_transform_halves(
-        dev(upars),
-        dev(total_shift),
-        dev(total_scaling),
-        dev(total_mapping),
-        dev(mapping_inv),
-        use_cov=bool(cov),
+    if isinstance(model, JAXModelWrapper):
+        fns = _wrapper_model_fns(model.model)
+    else:
+        fns = _callable_fns(model, i, log_prob_upars_fn, log_lik_i_upars_fn, kwargs)
+    ll_half, lwi_half, ok = _split_ratios(
+        dev(upars), dev(total_shift)[None], dev(total_scaling)[None], dev(total_mapping)[None],
+        torch.tensor([i], device=device), *fns, use_cov=bool(cov),
     )
-    upars_trans_half = half_fwd.cpu().numpy()
-    upars_trans_half_inv = half_inv.cpu().numpy()
-
-    log_prob_half_trans, log_prob_half_trans_inv, log_liki_half = _eval_halves(
-        model,
-        upars_trans_half,
-        upars_trans_half_inv,
-        i,
-        log_prob_upars_fn,
-        log_lik_i_upars_fn,
-        kwargs,
-    )
-    log_liki_half = np.asarray(log_liki_half, dtype=np.float64)
-
-    # inverse-map Jacobian: log|d inv / d u| = -sum log scaling - log|det M|
-    log_jac = float(
-        np.sum(np.log(total_scaling)) + np.log(np.abs(np.linalg.det(total_mapping)))
-    )
-    lwi_half = split_mixture_log_weights(
-        dev(log_liki_half),
-        dev(log_prob_half_trans),
-        dev(log_prob_half_trans_inv) - log_jac,
-    ).cpu().numpy()
+    if not _read(ok)[0]:
+        raise torch.linalg.LinAlgError("the accumulated map is singular")
+    log_liki_half = _read(ll_half[0])
+    lwi_half = lwi_half[0]
 
     lwi_half, _ = compute_importance_weights(lwi_half, method=method, reff=r_eff_i)
     lwi_half = np.asarray(lwi_half)

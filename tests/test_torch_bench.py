@@ -154,3 +154,35 @@ def test_the_model_is_the_one_described(path):
     assert torch.equal(model.beta, again.beta)
     assert all(torch.equal(a, b) for a, b in zip(model.copies[torch.device("cpu")],
                                                   again.copies[torch.device("cpu")]))
+
+
+_GLMM_ISOLATED = r"""
+import sys
+for name in ("jax", "pyloo_tpu", "pyloo_tpu_torch"):
+    sys.modules[name] = None
+sys.path.insert(0, {repo!r})
+import torch
+from benchmark import model_glmm, reference_mm
+assert not {"jax", "pyloo_tpu", "pyloo_tpu_torch"} & {n.split(".")[0] for n in sys.modules
+                                                     if sys.modules[n] is not None}
+print("glmm isolated ok")
+"""
+
+
+def test_the_glmm_generator_and_its_reference_import_neither_the_port_nor_jax():
+    """``benchmark/model_glmm.py`` (the workload's own code) and
+    ``benchmark/reference_mm.py`` (the plain moment matching that decides the
+    cell's ``correct``) import torch, numpy and the benchmark's plain PSIS
+    only: they load with JAX, ``pyloo_tpu`` and the port blocked."""
+    import re
+    import subprocess
+    import sys
+
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|pyloo_tpu|pyloo_tpu_torch)\b", re.MULTILINE)
+    for name in ("model_glmm.py", "reference_mm.py"):
+        assert not pattern.search((REPO / "benchmark" / name).read_text()), name
+    script = _GLMM_ISOLATED.replace("{repo!r}", repr(str(REPO)))
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                          timeout=300, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert "glmm isolated ok" in proc.stdout
